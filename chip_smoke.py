@@ -7,20 +7,28 @@ Phases (each raises on failure; the exit code is then not 0):
 
 1. build   — compile ``src/repro_torch/csrc/modmatmul.cu`` with nvcc and
              print the build time, the compiler's register report and
-             the card's name and power limit;
-2. kernels — every kernel (int32 and f32-limb, plain and fused-mask)
-             against its plain PyTorch version on the card, on ragged,
-             shared-operand, deep and adversarial shapes: exact equality;
+             the card's name and power limit; count the integer
+             tensor-core instructions in the mma kernel's SASS (raises
+             on none);
+2. kernels — every compiled kernel (int32 mma and skinny, f32 SIMT,
+             plain and fused-mask) against its plain PyTorch version on
+             the card, on ragged, shared-operand, deep and adversarial
+             shapes and at the edges of each design (the skinny cap,
+             the mma fold period, N % 4 != 0, z = 1, 2, 5): exact
+             equality, and each case on the design it was meant for;
 3. main    — ``run_batched`` (AGE, s = t = z = 2) at the width of one
              Mistral-NeMo-12B attention projection: a = X^T for a
              512-token chunk [batch, 5120, 512], b = W_q [batch, 5120,
              4096], unfused and fused, Y checked exactly against a
-             float64 matmul mod p; the launch counts prove the kernels
-             carried the path; then ``secure_matmul_batched`` once;
+             float64 matmul mod p; the launch counts (per TPU kernel
+             and per compiled kernel) prove the kernels carried the
+             path; a profiler breakdown of one warm run of each; then
+             ``secure_matmul_batched`` once;
 4. f32     — ``run_batched(backend="cuda")`` at depth 1024, so the
              f32-limb kernel is proven on the path too;
 5. timing  — each kernel at each launch site of its path: time, plain
-             version, bound, library call; printed as one JSON line.
+             version, bound, library call, design; printed as one JSON
+             line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits with code 2 and prints no result.
@@ -29,6 +37,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -39,19 +50,24 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 P = 65521
-SOURCE = "src/repro_torch/csrc/modmatmul.cu"
+SOURCES = {
+    "mma": "src/repro_torch/csrc/int32_mma.cuh",
+    "skinny": "src/repro_torch/csrc/int32_skinny.cuh",
+    "simt": "src/repro_torch/csrc/modmatmul.cu",
+}
 TPU_KERNELS = {
     "modmatmul_int32": "src/repro/kernels/modmatmul/kernel.py:152",
     "modmatmul_f32": "src/repro/kernels/modmatmul/kernel.py:101",
     "modmatmul_int32_masked": "src/repro/kernels/modmatmul/kernel.py:193",
     "modmatmul_f32_masked": "src/repro/kernels/modmatmul/kernel.py:193",
 }
-# Published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor-core
-# ops/s (the rate the limb dots map onto), 32-bit ALU ops/s outside the
-# tensor cores (the threefry mask stream).
+# Peaks of one H100 SXM (dense): HBM bytes/s and int8 tensor-core ops/s
+# (the rate the limb dots map onto) are NVIDIA's published figures; the
+# 32-bit integer pipe (the threefry mask stream and the mask terms) does
+# 64 lanes per SM per clock: 132 SMs * 64 * 1.98 GHz.
 HBM_BPS = 3.35e12
 INT8_TC_OPS = 1979e12
-ALU_OPS = 67e12
+INT32_OPS = 132 * 64 * 1.98e9
 # 32-bit ALU ops per threefry2x32 word and its Barrett reduction: 20
 # rounds of add/rotate/xor, 5 key injections, the counter add, and
 # mulhi/mul/sub/select; per masked term: multiply, Barrett, add.
@@ -72,8 +88,32 @@ def phase_build(K) -> None:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {K.BUILD_INFO.get('seconds', 0.0):.2f} s) -> {K.BUILD_INFO['library']}")
     for line in K.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill", "warning")):
             log("[build]", line.strip())
+    counts = sass_tensor_core_ops(K.BUILD_INFO["library"])
+    for fn, n in counts.items():
+        log(f"[build] {fn}: {n} integer tensor-core instructions")
+    mma = {fn: n for fn, n in counts.items() if "modmatmul_int32_mma" in fn}
+    if not mma or min(mma.values()) == 0:
+        raise AssertionError(f"no integer tensor-core instruction in the mma kernel: {counts}")
+
+
+def sass_tensor_core_ops(library: str) -> dict:
+    """Kernel (mangled name) -> count of IMMA/IGMMA/HGMMA-class opcodes
+    in the library's SASS, from cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\b(IMMA|IGMMA|HGMMA|GMMA)\b", line):
+            counts[fn] += 1
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -91,9 +131,8 @@ def draw(torch, gen, shape, mode):
     raise ValueError(mode)
 
 
-def phase_kernels(torch, K, ref, seed: int) -> int:
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
+def kernel_cases():
+    """(a shape, b shape, mode, z) of phase 2, for both variants."""
     layouts = [
         ((3, 17, 129), (3, 129, 100)),  # batched x batched
         ((17, 6), (4, 6, 1000)),  # 2D x batched (shared LHS)
@@ -102,30 +141,63 @@ def phase_kernels(torch, K, ref, seed: int) -> int:
     ]
     ragged = [((2, 33, k), (2, k, 77)) for k in (127, 128, 129, 255, 256, 257)]
     deep = [((1, 40, 8192), (1, 8192, 50))]
-    cases = [(sa, sb, mode) for sa, sb in layouts + ragged + deep
+    # z = 3 and z = 6: within and across one 4-row pass of a tiled
+    # epilogue's mask generation
+    cases = [(sa, sb, mode, 3 if i % 2 else 6)
+             for i, (sa, sb) in enumerate(layouts + ragged + deep)
              for mode in ("uniform", "maximal", "high_limb")]
-    # one fold of the int32 accumulators is 33024 deep: cross it twice
-    cases.append(((3, 70000), (70000, 5), "maximal"))
+    # the skinny cap (M, K = 32 / 33), each row bucket, N % 4 != 0, N
+    # below one block, shared operands on either side, z = 1, 2, 5
+    edges = [((2, m, k), (2, k, 1000)) for m in (32, 33) for k in (32, 33)]
+    edges += [((8, 3), (2, 3, 1001)), ((9, 5), (3, 5, 1003)), ((16, 31), (31, 6)),
+              ((2, 17, 6), (6, 5)), ((6, 6), (4, 6, 4093)), ((1, 1), (1, 1)),
+              ((17, 17), (4, 17, 2050)), ((2, 17, 2), (2, 2, 7)),
+              # mma with 16-byte loads (K, N % 4 == 0) and ragged M/N tiles
+              ((2, 200, 96), (2, 96, 260)), ((3, 130, 64), (64, 132))]
+    cases += [(sa, sb, mode, z) for sa, sb in edges for z in (1, 2, 5)
+              for mode in ("uniform", "maximal")]
+    # the depth folds: mma every 16512 K, the f32 kernel every 128 and
+    # the reference every 33024; cross each edge and fold twice
+    cases += [((3, k), (k, 5), "maximal", 2)
+              for k in (16511, 16512, 16513, 33023, 33024, 33025, 2 * 16512 + 5, 2 * 33024 + 5)]
+    cases += [((3, k), (k, 8), "maximal", 2) for k in (16512, 16516, 2 * 16512 + 8)]
+    cases.append(((3, 70000), (70000, 5), "maximal", 3))
+    return cases
+
+
+def phase_kernels(torch, K, ref, seed: int) -> int:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
     n = 0
+    designs = set()
     for variant in ("int32", "f32"):
-        for sa, sb, mode in cases:
+        for sa, sb, mode, z in kernel_cases():
             a, b = draw(torch, gen, sa, mode), draw(torch, gen, sb, mode)
-            # z = 3 and z = 6: within and across one 4-row pass of the
-            # epilogue's mask generation
-            v = draw(torch, gen, (sa[-2], 3 if n % 4 else 6), mode)
+            v = draw(torch, gen, (sa[-2], z), mode)
             key = (seed + 1, 1000 + n)
+            batch, m, k, nn = geometry(sa, sb)
+            K.reset_launch_counts()
             got = K.modmatmul_cuda(a, b, P, variant)
             want = ref.PLAIN[variant](a, b, P)
             gotm = K.modmatmul_masked_cuda(a, b, v, key, P, variant)
             wantm = ref.modmatmul_masked_plain(a, b, v, key, P, variant)
             torch.cuda.synchronize()
+            ran = {name for name, c in K.LAUNCHES_BY_KERNEL.items() if c}
+            expect = {f"{variant}_{K.choose_design(variant, False, batch, m, k, nn)}",
+                      f"{variant}_{K.choose_design(variant, True, batch, m, k, nn, z)}_masked"}
+            if ran != expect:
+                raise AssertionError(f"{variant} at {sa} @ {sb} z={z} ran {ran}, expected {expect}")
+            designs |= ran
             for tag, g_, w_ in (("plain", got, want), ("masked", gotm, wantm)):
                 if g_.shape != w_.shape or not torch.equal(g_, w_):
                     raise AssertionError(
-                        f"{variant} {tag} kernel != plain version at {sa} @ {sb} ({mode})"
+                        f"{variant} {tag} kernel != plain version at {sa} @ {sb} ({mode}, z={z})"
                     )
             n += 2
-    log(f"[kernels] {n} kernel launches equal their plain versions exactly")
+    if designs != set(K.COMPILED_NAMES):
+        raise AssertionError(f"phase 2 reached only {sorted(designs)}")
+    log(f"[kernels] {n} kernel launches on all {len(designs)} compiled kernels "
+        f"equal their plain versions exactly")
     return n
 
 
@@ -185,25 +257,36 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 def drive(torch, K, protocol, plan, a, b, want, *, backend, fused, tag, seed):
     """One run_batched with the counts zeroed just before and read just
-    after; checks Y exactly.  Returns {kernel: Counter of shapes}."""
+    after; checks Y exactly.  Returns {compiled kernel: {shape: launches}}."""
     K.reset_launch_counts()
     y, _ = protocol.run_batched(plan, a, b, seed=seed, backend=backend, fused_masks=fused)
     torch.cuda.synchronize()
-    counts = {name: dict(K.LAUNCH_SHAPES[name]) for name in K.KERNEL_NAMES}
+    counts = {name: dict(K.LAUNCH_SHAPES_BY_KERNEL[name]) for name in K.COMPILED_NAMES}
     totals = {name: K.LAUNCHES[name] for name in K.KERNEL_NAMES}
     if y.shape != want.shape or not torch.equal(y, want):
         bad = int((y != want).sum()) if y.shape == want.shape else -1
         raise AssertionError(f"[{tag}] Y differs from the float64 oracle in {bad} entries")
     log(f"[{tag}] Y exact {tuple(y.shape)}; launches {totals}")
-    return counts, totals
+    return counts
 
 
-def expect_launches(totals, kernel, masked_kernel, fused: bool, tag: str) -> None:
-    want = {kernel: 2, masked_kernel: 3} if fused else {kernel: 6, masked_kernel: 0}
-    got = {k: totals[k] for k in want}
-    others = {k: v for k, v in totals.items() if k not in want and v}
-    if got != want or others:
-        raise AssertionError(f"[{tag}] launches {totals}, expected {want}")
+# launches of one run_batched at full width, per compiled kernel: the P2
+# multiply on the tensor cores, every other site skinny
+MAIN_BY_KERNEL = {
+    False: {"int32_mma": 1, "int32_skinny": 5},
+    True: {"int32_mma": 1, "int32_skinny": 1, "int32_skinny_masked": 3},
+}
+F32_BY_KERNEL = {False: {"f32_simt": 6}, True: {"f32_simt": 2, "f32_simt_masked": 3}}
+
+
+def expect_launches(K, kernel, masked_kernel, by_kernel, fused: bool, tag: str) -> None:
+    want = {kernel: 2, masked_kernel: 3} if fused else {kernel: 6}
+    got = {k: v for k, v in K.LAUNCHES.items() if v}
+    got_by = {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v}
+    if got != want or got_by != by_kernel[fused]:
+        raise AssertionError(f"[{tag}] launches {got} / {got_by}, "
+                             f"expected {want} / {by_kernel[fused]}")
+    log(f"[{tag}] launches by compiled kernel {got_by}")
 
 
 def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict:
@@ -223,10 +306,10 @@ def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict
     counts = {}
     for fused in (False, True):
         tag = "main fused" if fused else "main unfused"
-        c, totals = drive(torch, K, protocol, plan, a, b, want,
-                          backend="auto", fused=fused, tag=tag, seed=args.seed)
-        expect_launches(totals, "modmatmul_int32", "modmatmul_int32_masked", fused, tag)
-        counts[fused] = c
+        counts[fused] = drive(torch, K, protocol, plan, a, b, want,
+                              backend="auto", fused=fused, tag=tag, seed=args.seed)
+        expect_launches(K, "modmatmul_int32", "modmatmul_int32_masked", MAIN_BY_KERNEL,
+                        fused, tag)
     peak = torch.cuda.max_memory_allocated()
 
     times = {}
@@ -243,6 +326,7 @@ def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict
         times["fused" if fused else "unfused"] = statistics.median(ms)
     log(f"[main] run_batched median ms over {args.reps}: {times}; "
         f"peak allocated {peak / 2**30:.2f} GiB")
+    profile_breakdown(torch, protocol, plan, a, b, args.seed)
 
     # the float API once, same shapes; exact against the quantized oracle
     gf = torch.Generator(device="cuda")
@@ -281,11 +365,55 @@ def phase_f32(torch, K, protocol, planner, constructions, args) -> dict:
     counts = {}
     for fused in (False, True):
         tag = "f32 fused" if fused else "f32 unfused"
-        c, totals = drive(torch, K, protocol, plan, a, b, want,
-                          backend="cuda", fused=fused, tag=tag, seed=args.seed)
-        expect_launches(totals, "modmatmul_f32", "modmatmul_f32_masked", fused, tag)
-        counts[fused] = c
+        counts[fused] = drive(torch, K, protocol, plan, a, b, want,
+                              backend="cuda", fused=fused, tag=tag, seed=args.seed)
+        expect_launches(K, "modmatmul_f32", "modmatmul_f32_masked", F32_BY_KERNEL, fused, tag)
     return {"plan": plan, "counts": counts, "batch": batch}
+
+
+def profile_breakdown(torch, protocol, plan, a, b, seed: int, top: int = 12) -> None:
+    """One warm run_batched of each kind under torch.profiler: the top
+    device ops (kernels, copies, fills) by self device time, and the
+    device-idle share of the window (1 - summed device time / event-timed
+    window; one stream, so they do not overlap).  The profiler's own host
+    cost is inside the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fused in (False, True):
+        tag = "fused" if fused else "unfused"
+        protocol.run_batched(plan, a, b, seed=seed, fused_masks=fused)  # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            protocol.run_batched(plan, a, b, seed=seed, fused_masks=fused)
+            end.record()
+            end.synchronize()
+        window = start.elapsed_time(end)
+        rows = []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue  # a host op: its device time is its kernels' rows
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                rows.append((dev_us / 1e3, ev.count, ev.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        if busy <= 0:
+            log(f"[profile {tag}] window {window:.3f} ms; device time not measured "
+                f"(the profiler recorded none)")
+            continue
+        log(f"[profile {tag}] " + json.dumps({
+            "window_ms": round(window, 4),
+            "device_busy_ms": round(busy, 4),
+            "device_idle_share": round(max(0.0, 1.0 - busy / window), 4),
+            "top": [{"op": k[:80], "self_device_ms": round(ms, 4), "calls": c}
+                    for ms, c, k in rows[:top]],
+        }))
 
 
 # ----------------------------------------------------------------------
@@ -306,9 +434,11 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
         for site in names:
             sa, sb = sites[site]
             shape = geometry(sa, sb)
-            n_launch = run["counts"][fused][name].get(shape, 0)
+            design = K.choose_design(variant, masked, *shape, z if masked else 0)
+            compiled = f"{variant}_{design}" + ("_masked" if masked else "")
+            n_launch = run["counts"][fused][compiled].get(shape, 0)
             if n_launch < 1:
-                raise AssertionError(f"{name} never launched at {site} {shape}")
+                raise AssertionError(f"{compiled} never launched at {site} {shape}")
             key = (name, site)
             if key in seen:  # the same site in the other run: add its launches
                 seen[key]["launches"] += n_launch
@@ -344,13 +474,15 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
             tc_ops = 8 * B * M * (Kd + (z if masked else 0)) * N
             alu_ops = (B * z * N * THREEFRY_OPS + B * M * N * z * MASK_TERM_OPS) if masked else 0
             t_bytes = nbytes / HBM_BPS * 1e3
-            t_ops = (tc_ops / INT8_TC_OPS + alu_ops / ALU_OPS) * 1e3
+            t_ops = (tc_ops / INT8_TC_OPS + alu_ops / INT32_OPS) * 1e3
             entry = {
                 "name": name,
+                "kernel": compiled,
+                "design": design,
                 "site": site,
                 "shape": f"{list(sa)}@{list(sb)}" + (f"+v{[sa[-2], z]}" if masked else ""),
                 "route": "cuda",
-                "source": SOURCE,
+                "source": SOURCES[design],
                 "replaces": TPU_KERNELS[name],
                 "launches": n_launch,
                 "max_abs_err": err,
@@ -362,7 +494,7 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
             }
             seen[key] = entry
             entries.append(entry)
-            log(f"[timing] {name:24s} {site:12s} {entry['shape']:44s} "
+            log(f"[timing] {compiled:20s} {site:12s} {entry['shape']:44s} "
                 f"{ms:9.3f} ms  plain {plain_ms:9.3f}  bound {entry['bound_ms']:7.3f} "
                 f"({entry['bound_by']})  library {library_ms}")
             del a, b, v
@@ -402,6 +534,10 @@ def main() -> int:
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"kernel {name} was not launched on its path")
+    on_path = {n for by in (MAIN_BY_KERNEL, F32_BY_KERNEL) for d in by.values() for n in d}
+    for name in on_path:
+        if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
+            raise AssertionError(f"compiled kernel {name} was not launched on its path")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"run_batched ms {main_run['times']}, peak {main_run['peak']} bytes")
     print(json.dumps({"kernels": entries}))

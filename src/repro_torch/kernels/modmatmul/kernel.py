@@ -1,22 +1,31 @@
 """Hopper kernels for exact GF(p) matmul, p < 2**16: build, binding, wrappers.
 
-The CUDA source is ``repro_torch/csrc/modmatmul.cu``: one tiled kernel
-templated on the arithmetic variant (``"int32"``: integer limb dots and
-uint32 Barrett; ``"f32"``: float limb dots with the lazy 128-deep
-reduction) and on a fused-mask epilogue.  It replaces the three Pallas
-tile bodies of ``repro.kernels.modmatmul.kernel`` — the source says how.
+The CUDA sources are under ``repro_torch/csrc/``; ``modmatmul.cu`` is the
+one translation unit and includes the others.  Three compiled designs,
+each with a fused-mask form, replace the three Pallas tile bodies of
+``repro.kernels.modmatmul.kernel`` — each source says how:
 
-Build: at first use ``nvcc`` compiles the source into a shared library
-with a plain C interface under ``build/repro_torch_kernels/`` (or
-``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source and flags so
-an edit rebuilds; ``ctypes`` loads it.  Nothing is built or imported
-when this module is imported.
+* ``"mma"``    (``int32_mma.cuh``): the int32 variant on the integer
+  tensor cores (u8 limbs, ``mma.sync`` m16n8k32, s32 accumulators), for
+  every int32 product that is not skinny;
+* ``"skinny"`` (``int32_skinny.cuh``): the int32 variant for M <= 32 and
+  K <= 32, one pass over B and over the output, the mask words made as
+  extra rows of B;
+* ``"simt"``   (``modmatmul.cu``): the f32-limb variant on the CUDA cores.
+
+:func:`choose_design` is the shape rule.
+
+Build: at first use ``nvcc`` compiles ``modmatmul.cu`` into a shared
+library with a plain C interface under ``build/repro_torch_kernels/`` (or
+``$REPRO_TORCH_BUILD_DIR``), named by a hash of every source and the
+flags so an edit rebuilds; ``ctypes`` loads it.  Nothing is built or
+imported when this module is imported.
 
 Wrappers: :func:`modmatmul_cuda` and :func:`modmatmul_masked_cuda`.  On
 CUDA tensors they check device, dtype, contiguity and shape, allocate
 the output, launch on the current stream, raise if the launch failed,
-and add one to the kernel's launch count.  On CPU tensors they run the
-kernel's plain version from ``ref.py`` (and count nothing).
+and add one to the launch counts.  On CPU tensors they run the kernel's
+plain version from ``ref.py`` (and count nothing).
 """
 from __future__ import annotations
 
@@ -36,35 +45,97 @@ import torch
 from ...core.gf import P_DEFAULT
 from . import ref
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "modmatmul.cu"
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+SOURCE = CSRC / "modmatmul.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-VARIANTS = {"int32": 0, "f32": 1}
 
-# The launch geometry compiled into the source (BM, BN, BK).
-KERNEL_TILES = (64, 64, 32)
+# Constants compiled into the sources, mirrored here for the shape rule
+# (load_library checks the mirror against the built library).
+MMA_TILES = (128, 128, 32)  # int32_mma.cuh: BM, BN, BK
+MMA_FOLD_K = 16512  # int32_mma.cuh: FOLD_K, the accumulator fold period
+SKINNY_MAX_M = 32  # int32_skinny.cuh: the skinny design's shape cap
+SKINNY_MAX_K = 32
+SKINNY_MAX_TERMS = 128  # K + z: the skinny accumulators' wrap bound
+SKINNY_THREADS = 256
+SIMT_TILES = (64, 64, 32)  # modmatmul.cu: BM, BN, BK of the f32 kernel
+DESIGNS = {"simt": 0, "mma": 1, "skinny": 2}
+_MAX_GRID_X = (1 << 31) - 1
 _MAX_GRID_YZ = 65535
 
-# Launch counts: name -> launches, and name -> Counter of (B, M, K, N).
-# Each wrapper adds one where it launches its kernel and nowhere else.
+# Launch counts.  LAUNCHES is keyed by the TPU kernel each launch stands
+# for; LAUNCHES_BY_KERNEL by the compiled kernel that ran.  Each has a
+# Counter of (B, M, K, N) per name beside it.  Each wrapper adds one
+# where it launches a kernel and nowhere else.
 KERNEL_NAMES = ("modmatmul_int32", "modmatmul_int32_masked", "modmatmul_f32", "modmatmul_f32_masked")
+COMPILED_NAMES = (
+    "int32_mma", "int32_mma_masked", "int32_skinny", "int32_skinny_masked",
+    "f32_simt", "f32_simt_masked",
+)
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 LAUNCH_SHAPES = {name: collections.Counter() for name in KERNEL_NAMES}
+LAUNCHES_BY_KERNEL = {name: 0 for name in COMPILED_NAMES}
+LAUNCH_SHAPES_BY_KERNEL = {name: collections.Counter() for name in COMPILED_NAMES}
 
 _LIB = None
 BUILD_INFO: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNEL_NAMES:
-        LAUNCHES[name] = 0
-        LAUNCH_SHAPES[name].clear()
+    for counts, shapes in ((LAUNCHES, LAUNCH_SHAPES), (LAUNCHES_BY_KERNEL, LAUNCH_SHAPES_BY_KERNEL)):
+        for name in counts:
+            counts[name] = 0
+            shapes[name].clear()
 
 
 def _kernel_name(variant: str, masked: bool) -> str:
     return f"modmatmul_{variant}" + ("_masked" if masked else "")
+
+
+def choose_design(variant: str, masked: bool, batch: int, m: int, k: int, n: int, z: int = 0) -> str:
+    """The compiled kernel one product runs on: ``"skinny"`` for int32
+    products with M <= 32, K <= 32 and K + z <= 128 (z mask rows count as
+    rows of B), ``"mma"`` for every other int32 product, ``"simt"`` for
+    the f32 variant.  ``batch`` and ``n`` only set the grid, which
+    every design tiles without limit on N and up to 65535 on batch."""
+    if variant == "f32":
+        return "simt"
+    if variant != "int32":
+        raise ValueError(f"unknown kernel variant {variant}")
+    terms = k + (z if masked else 0)
+    if m <= SKINNY_MAX_M and k <= SKINNY_MAX_K and terms <= SKINNY_MAX_TERMS:
+        return "skinny"
+    return "mma"
+
+
+def skinny_cols(m: int) -> int:
+    """Columns one thread of the skinny kernel owns (SkinnyCols of M
+    rounded up to a multiple of 4)."""
+    return 4 if m <= 16 else 2
+
+
+def design_tiles(design: str, m: int, k: int) -> Tuple[int, int, int]:
+    """(bm, bn, bk) one block of ``design`` covers.  A skinny block covers
+    all M rows and the whole contraction across its columns."""
+    if design == "mma":
+        return MMA_TILES
+    if design == "simt":
+        return SIMT_TILES
+    if design == "skinny":
+        return (m, SKINNY_THREADS * skinny_cols(m), k)
+    raise ValueError(f"unknown design {design}")
+
+
+def _grid_ok(design: str, batch: int, m: int, n: int) -> bool:
+    bm, bn, _ = design_tiles(design, m, 1)
+    col_blocks = -(-n // bn)
+    if design == "simt":
+        return col_blocks <= _MAX_GRID_X and -(-m // bm) <= _MAX_GRID_YZ and batch <= _MAX_GRID_YZ
+    if design == "mma":
+        col_blocks *= -(-m // bm)  # M tiles and N tiles share grid.x
+    return col_blocks <= _MAX_GRID_X and batch <= _MAX_GRID_YZ
 
 
 def build_dir() -> Path:
@@ -87,36 +158,29 @@ def _nvcc() -> str:
     return path
 
 
-def load_library():
-    """Build (once per source hash) and load the kernel library."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    so = out_dir / f"libmodmatmul_{digest}.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        # compile to a private name, then rename: concurrent builders
-        # never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{res.stderr}")
-        os.replace(tmp, so)
-        BUILD_INFO.update(seconds=time.perf_counter() - t0, log=res.stderr)
+def compile_library(source: Path, so: Path) -> str:
+    """nvcc ``source`` into the shared library ``so``; returns the
+    compiler's report (``-Xptxas -v``: registers, spills per kernel)."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)], capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{res.stderr}")
+    os.replace(tmp, so)
+    return res.stderr
+
+
+def bind(so: Path):
+    """Load a built library and declare its C interface."""
     lib = ctypes.CDLL(str(so))
     fn = lib.modmatmul_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_int, ctypes.c_int,  # variant, masked
+        ctypes.c_int, ctypes.c_int,  # design, masked
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a, b, out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch, M, N, K
         ctypes.c_longlong, ctypes.c_longlong,  # batch strides of a, b
@@ -125,6 +189,29 @@ def load_library():
         ctypes.c_uint, ctypes.c_uint,  # key words
         ctypes.c_void_p,  # stream
     ]
+    return lib
+
+
+def load_library():
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    so = build_dir() / f"libmodmatmul_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        t0 = time.perf_counter()
+        log = compile_library(SOURCE, so)
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log)
+    lib = bind(so)
+    consts = (ctypes.c_int * 11)()
+    lib.modmatmul_constants(consts)
+    mirror = (*MMA_TILES, MMA_FOLD_K, SKINNY_MAX_M, SKINNY_MAX_K, SKINNY_MAX_TERMS,
+              SKINNY_THREADS, *SIMT_TILES)
+    if tuple(consts) != mirror:
+        raise RuntimeError(f"{so.name}: compiled constants {tuple(consts)} != kernel.py's {mirror}")
     BUILD_INFO.update(library=str(so))
     _LIB = lib
     return lib
@@ -176,9 +263,24 @@ def _check_mask(v: torch.Tensor, batch: int, m: int, n: int) -> int:
     return z
 
 
+def launch_into(lib, design: str, a, b, out, p: int, v=None, key=(0, 0)) -> int:
+    """One launch of ``lib``'s ``design`` writing ``out``, on the current
+    stream, with no checks and no counting; returns the CUDA error."""
+    batch, m, k, n = _geometry(a, b)
+    with torch.cuda.device(a.device):
+        return lib.modmatmul_launch(
+            DESIGNS[design], int(v is not None),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            batch, m, n, k,
+            m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0,
+            p,
+            None if v is None else v.data_ptr(), 0 if v is None else int(v.shape[1]),
+            int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF,
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+
+
 def _launch(variant, a, b, p, v=None, key=(0, 0)) -> torch.Tensor:
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown kernel variant {variant}")
     if not 2 < p < 1 << 16:
         raise ValueError("kernel requires 2 < p < 2**16")
     masked = v is not None
@@ -187,30 +289,22 @@ def _launch(variant, a, b, p, v=None, key=(0, 0)) -> torch.Tensor:
     _check_cuda(name, a, b, *((v,) if masked else ()))
     if max(m, n, k) >= 1 << 31:
         raise ValueError(f"{name}: dims must be below 2**31")
-    if batch > _MAX_GRID_YZ or -(-m // KERNEL_TILES[0]) > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: batch {batch} / M {m} exceed the launch grid")
     z = _check_mask(v, batch, m, n) if masked else 0
+    design = choose_design(variant, masked, batch, m, k, n, z)
+    compiled = f"{variant}_{design}" + ("_masked" if masked else "")
+    if not _grid_ok(design, batch, m, n):
+        raise ValueError(f"{compiled}: batch {batch} / M {m} / N {n} exceed the launch grid")
     out_shape = (batch, m, n) if a.dim() == 3 or b.dim() == 3 else (m, n)
     out = torch.empty(out_shape, dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.modmatmul_launch(
-            VARIANTS[variant], int(masked),
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            batch, m, n, k,
-            m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0,
-            p,
-            v.data_ptr() if masked else None, z,
-            int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF,
-            stream,
-        )
+    err = launch_into(load_library(), design, a, b, out, p, v, key)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{compiled}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[name][(batch, m, k, n)] += 1
+    LAUNCHES_BY_KERNEL[compiled] += 1
+    LAUNCH_SHAPES_BY_KERNEL[compiled][(batch, m, k, n)] += 1
     return out
 
 

@@ -2,9 +2,10 @@
 
 Backends of :func:`mod_matmul` / :func:`mod_matmul_masked`:
 
-* ``"cuda_int32"`` — the Hopper int32 kernel (counterpart of
-                     ``"pallas_int32"``): integer limb dots, uint32
-                     Barrett, no depth limit.
+* ``"cuda_int32"`` — the Hopper int32 kernels (counterpart of
+                     ``"pallas_int32"``): integer limb dots on the
+                     tensor cores, or the skinny kernel for small M
+                     and K (``kernel.choose_design``); no depth limit.
 * ``"cuda"``       — the Hopper f32-limb kernel (counterpart of
                      ``"pallas"``).
 * ``"f32limb"`` / ``"int32"`` — the plain torch paths of ``core.gf``,
@@ -37,7 +38,7 @@ from ...core.gf import (
 )
 from ...obs.metrics import REGISTRY
 from ...obs.tracer import TRACER
-from .kernel import KERNEL_TILES, modmatmul_cuda, modmatmul_masked_cuda
+from .kernel import choose_design, design_tiles, modmatmul_cuda, modmatmul_masked_cuda
 
 _CUDA_VARIANTS = {"cuda": "f32", "cuda_int32": "int32"}
 _PLAIN = {"f32limb": mod_matmul_f32, "int32": mod_matmul_int32}
@@ -50,25 +51,36 @@ def _round_up(x: int, mult: int) -> int:
 # ----------------------------------------------------------------------
 # tile selection
 # ----------------------------------------------------------------------
-def _pick_tiles_cuda(m: int, k: int, n: int) -> tuple:
-    """The Hopper kernel has one compiled block shape (BM, BN, BK)."""
-    return KERNEL_TILES
+def _compiled_tiles(backend: str, m: int, k: int, n: int, z: int = 0) -> tuple:
+    """The block shape of the compiled design a product goes to."""
+    variant = _CUDA_VARIANTS[backend]
+    return design_tiles(choose_design(variant, z > 0, 1, m, k, n, z), m, k)
 
 
-_TILE_CHOOSERS = {"cuda": _pick_tiles_cuda, "cuda_int32": _pick_tiles_cuda}
+def _pick_tiles_f32(m: int, k: int, n: int, z: int = 0) -> tuple:
+    return _compiled_tiles("cuda", m, k, n, z)
+
+
+def _pick_tiles_int32(m: int, k: int, n: int, z: int = 0) -> tuple:
+    return _compiled_tiles("cuda_int32", m, k, n, z)
+
+
+_TILE_CHOOSERS = {"cuda": _pick_tiles_f32, "cuda_int32": _pick_tiles_int32}
 
 
 def register_tile_chooser(backend: str, chooser) -> None:
-    """Install a tile-selection policy ``chooser(m, k, n) -> (bm, bn,
-    bk)`` for one kernel backend.  The wrapper accepts only tiles the
-    compiled kernel has, so a chooser is the hook for kernels that
-    compile more than one block shape."""
+    """Install a tile-selection policy ``chooser(m, k, n, z) -> (bm, bn,
+    bk)`` for one kernel backend (z: fused mask rows, 0 unmasked).  The
+    wrapper accepts only the block shape of the compiled design a
+    product goes to, so a chooser is the hook for kernels that compile
+    more than one block shape per design."""
     _TILE_CHOOSERS[backend] = chooser
 
 
-def pick_tiles(m: int, k: int, n: int, backend: str = "cuda_int32") -> tuple:
-    """(bm, bn, bk) the kernel backend runs one [M,K]@[K,N] product with."""
-    return _TILE_CHOOSERS.get(backend, _pick_tiles_cuda)(m, k, n)
+def pick_tiles(m: int, k: int, n: int, backend: str = "cuda_int32", z: int = 0) -> tuple:
+    """(bm, bn, bk) the kernel backend runs one [M,K]@[K,N] product with
+    (plus z fused mask rows)."""
+    return _TILE_CHOOSERS.get(backend, _pick_tiles_int32)(m, k, n, z)
 
 
 def padded_shape(m: int, k: int, n: int, tiles: tuple) -> tuple:
@@ -139,11 +151,12 @@ def _event(backend, a, b, **attrs) -> None:
         )
 
 
-def _check_tiles(backend, m, k, n) -> None:
-    tiles = tuple(pick_tiles(m, k, n, backend=backend))
-    if tiles != KERNEL_TILES:
+def _check_tiles(backend, m, k, n, z=0) -> None:
+    tiles = tuple(pick_tiles(m, k, n, backend=backend, z=z))
+    compiled = _compiled_tiles(backend, m, k, n, z)
+    if tiles != compiled:
         raise ValueError(
-            f"{backend}: tiles {tiles} are not compiled; the kernel has {KERNEL_TILES}"
+            f"{backend}: tiles {tiles} are not compiled; the kernel has {compiled}"
         )
 
 
@@ -199,7 +212,7 @@ def mod_matmul_masked(
         mask = field_mask(key, batch + (z, n), p, device=a.device)
         return mod_add(mm, mod_matmul(v, mask, p=p, backend=backend), p)
     _event(backend, a, b, fused_mask=True)
-    _check_tiles(backend, m, k, n)
+    _check_tiles(backend, m, k, n, z)
     variant = _CUDA_VARIANTS[backend]
     v = v.contiguous()
     if not batch:

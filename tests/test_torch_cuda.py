@@ -37,24 +37,39 @@ def _draw(rng, shape, mode, p=P):
     raise ValueError(mode)
 
 
-# (a shape, b shape, p, mode): shared operands on either side, ragged
-# M/N/K around the tile and lazy-reduction edges, a deep K
-_CASES = [
-    ((3, 17, 129), (3, 129, 100), 65521, "uniform"),
-    ((17, 6), (4, 6, 1000), 65521, "maximal"),
-    ((2, 70, 257), (257, 65), 65519, "high_limb"),
-    ((2, 33, 128), (2, 128, 77), 4093, "near_p"),
-    ((40, 8192), (8192, 50), 65521, "high_limb"),
-]
+# (a shape, b shape, p, mode) by the int32 design each lands on: shared
+# operands on either side, ragged M/N/K around the tiles and the lazy
+# reduction, a deep K; for skinny also the M/K cap, each row bucket and
+# N % 4 != 0.  The f32 variant runs every case on its SIMT kernel.
+_CASES = {
+    "mma": [
+        ((3, 17, 129), (3, 129, 100), 65521, "uniform"),
+        ((2, 70, 257), (257, 65), 65519, "high_limb"),
+        ((2, 33, 128), (2, 128, 77), 4093, "near_p"),
+        ((40, 8192), (8192, 50), 65521, "high_limb"),
+        ((2, 33, 32), (2, 32, 100), 65521, "maximal"),
+    ],
+    "skinny": [
+        ((17, 6), (4, 6, 1000), 65521, "maximal"),
+        ((2, 32, 32), (2, 32, 1001), 65521, "maximal"),
+        ((6, 6), (3, 6, 4093), 65519, "high_limb"),
+        ((3, 9, 17), (17, 7), 4093, "near_p"),
+        ((1, 1), (1, 1), 65521, "uniform"),
+    ],
+}
+_KERNEL_CASES = [(variant, design, case) for design, cases in _CASES.items()
+                 for case in cases for variant in ("int32", "f32")]
 
 
-@pytest.mark.parametrize("variant", ["int32", "f32"])
-@pytest.mark.parametrize("case", _CASES, ids=lambda c: f"{c[0]}@{c[1]}-{c[3]}")
-def test_kernel_matches_plain_version(cuda, variant, case):
+@pytest.mark.parametrize(
+    "variant,design,case", _KERNEL_CASES,
+    ids=lambda x: x if isinstance(x, str) else f"{x[0]}@{x[1]}-{x[3]}",
+)
+def test_kernel_matches_plain_version(cuda, variant, design, case):
     sa, sb, p, mode = case
     rng = np.random.default_rng(len(sa) * 1000 + sa[-1])
     a, b = (torch.as_tensor(_draw(rng, s, mode, p), dtype=torch.int32, device=cuda) for s in (sa, sb))
-    # z = 5 crosses one 4-row pass of the epilogue's mask generation
+    # z = 5 crosses one 4-row pass of a tiled epilogue's mask generation
     v = torch.as_tensor(_draw(rng, (sa[-2], 5), mode, p), dtype=torch.int32, device=cuda)
     K.reset_launch_counts()
     got = K.modmatmul_cuda(a, b, p, variant)
@@ -62,17 +77,20 @@ def test_kernel_matches_plain_version(cuda, variant, case):
     torch.cuda.synchronize()
     assert K.LAUNCHES[f"modmatmul_{variant}"] == 1
     assert K.LAUNCHES[f"modmatmul_{variant}_masked"] == 1
+    ran = design if variant == "int32" else "simt"
+    assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == {
+        f"{variant}_{ran}": 1, f"{variant}_{ran}_masked": 1}
     assert torch.equal(got, ref.PLAIN[variant](a, b, p))
     assert torch.equal(gotm, ref.modmatmul_masked_plain(a, b, v, (5, 6), p, variant))
     np.testing.assert_array_equal(got.cpu().numpy(), ref.modmatmul_ref(a.cpu(), b.cpu(), p))
 
 
 def test_int32_kernel_folds_past_the_raw_accumulator_bound(cuda):
-    k = 2 * gf.INT32_ACC_K + 5
-    a = torch.full((3, k), P - 1, dtype=torch.int32, device=cuda)
-    b = torch.full((k, 5), P - 1, dtype=torch.int32, device=cuda)
-    got = K.modmatmul_cuda(a, b, P, "int32")
-    assert bool((got == (k * (P - 1) ** 2) % P).all())
+    for k in (K.MMA_FOLD_K + 1, 2 * gf.INT32_ACC_K + 5):
+        a = torch.full((3, k), P - 1, dtype=torch.int32, device=cuda)
+        b = torch.full((k, 5), P - 1, dtype=torch.int32, device=cuda)
+        got = K.modmatmul_cuda(a, b, P, "int32")
+        assert bool((got == (k * (P - 1) ** 2) % P).all())
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -85,23 +103,31 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ops.mod_matmul(a, a.t().contiguous(), backend="int32")
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_run_batched_on_the_card_equals_the_cpu_run(cuda, fused):
+def _run_on_card_and_cpu(k, ma, mb, fused):
     plan = planner.get_plan(
         constructions.build_scheme("age", 2, 2, 2),
-        planner.BlockShapes(k=64, ma=32, mb=48, s=2, t=2),
+        planner.BlockShapes(k=k, ma=ma, mb=mb, s=2, t=2),
     )
     rng = np.random.default_rng(5)
-    a = rng.integers(0, P, (3, 64, 32))
-    b = rng.integers(0, P, (3, 64, 48))
+    a = rng.integers(0, P, (3, k, ma))
+    b = rng.integers(0, P, (3, k, mb))
     want, _ = protocol.run_batched(plan, a, b, seed=2, fused_masks=fused, device="cpu")
     K.reset_launch_counts()
     got, _ = protocol.run_batched(plan, a, b, seed=2, fused_masks=fused)
     torch.cuda.synchronize()
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), want)
+    return plan, a, b
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_batched_on_the_card_equals_the_cpu_run(cuda, fused):
+    plan, a, b = _run_on_card_and_cpu(64, 32, 48, fused)
     expect = {"modmatmul_int32": 2, "modmatmul_int32_masked": 3} if fused else {"modmatmul_int32": 6}
     assert {k: v for k, v in K.LAUNCHES.items() if v} == expect
+    # at k = 64 every product is skinny, the P2 multiply ([16, 32] blocks) too
+    expect = {"int32_skinny": 2, "int32_skinny_masked": 3} if fused else {"int32_skinny": 6}
+    assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == expect
     if fused:  # the in-kernel mask stream: shares bit-identical to the CPU's
         key = gf.prng_key(9)
         for x, y in zip(
@@ -109,3 +135,12 @@ def test_run_batched_on_the_card_equals_the_cpu_run(cuda, fused):
             protocol.share_batched(plan, a, b, key, fused_masks=True, device="cpu"),
         ):
             assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_batched_reaches_the_tensor_core_kernel(cuda, fused):
+    # k = 128: the P2 multiply is [32, 64] @ [64, 24], too deep for skinny
+    _run_on_card_and_cpu(128, 64, 48, fused)
+    expect = ({"int32_mma": 1, "int32_skinny": 1, "int32_skinny_masked": 3} if fused
+              else {"int32_mma": 1, "int32_skinny": 5})
+    assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == expect

@@ -15,8 +15,8 @@ import jax.numpy as jnp
 from repro.core import gf as rgf
 from repro.kernels.modmatmul import kernel as rkernel
 from repro.kernels.modmatmul import ops as rops
+from repro_torch.kernels.modmatmul import ablate, ops, ref
 from repro_torch.kernels.modmatmul import kernel as K
-from repro_torch.kernels.modmatmul import ops, ref
 
 P = 65521
 
@@ -161,11 +161,17 @@ def test_flatten_batch_keeps_a_shared_operand_2d():
 
 
 def test_tiles_and_padding_accounting():
-    assert ops.pick_tiles(17, 6, 1000, backend="cuda_int32") == K.KERNEL_TILES
+    # the skinny design covers all M rows and all of K, 2 columns a thread
+    assert ops.pick_tiles(17, 6, 1000, backend="cuda_int32") == (17, 512, 6)
+    assert ops.pick_tiles(17, 6, 1000, backend="cuda") == K.SIMT_TILES
+    assert ops.pick_tiles(256, 2560, 2048, backend="cuda_int32") == K.MMA_TILES
+    assert ops.padded_shape(17, 6, 1000, (17, 512, 6)) == (17, 6, 1024)
     assert ops.padded_shape(17, 6, 1000, (64, 64, 32)) == (64, 32, 1024)
     assert ops.padding_waste(64, 32, 64, (64, 64, 32)) == 0.0
-    assert 0.0 < ops.padding_waste(17, 6, 1000, (64, 64, 32)) < 1.0
-    ops.register_tile_chooser("cuda", lambda m, k, n: (16, 64, 32))
+    assert ops.padding_waste(256, 2560, 2048, K.MMA_TILES) == 0.0
+    assert 0.0 < ops.padding_waste(17, 6, 1000, (17, 512, 6)) < ops.padding_waste(
+        17, 6, 1000, (64, 64, 32)) < 1.0
+    ops.register_tile_chooser("cuda", lambda m, k, n, z=0: (16, 64, 32))
     try:
         with pytest.raises(ValueError, match="not compiled"):
             ops.mod_matmul(
@@ -173,7 +179,100 @@ def test_tiles_and_padding_accounting():
                 backend="cuda",
             )
     finally:
-        ops.register_tile_chooser("cuda", ops._pick_tiles_cuda)
+        ops.register_tile_chooser("cuda", ops._pick_tiles_f32)
+
+
+# ----------------------------------------------------------------------
+# the shape rule that picks a compiled design
+# ----------------------------------------------------------------------
+# the six int32 products of run_batched at Mistral-NeMo q-projection
+# width (AGE s = t = z = 2, batch 4): (batch, M, K, N)
+_MAIN_SITES = {
+    "P1 share A": (4, 17, 6, 655360),
+    "P1 share B": (4, 17, 6, 5242880),
+    "P2 multiply": (68, 256, 2560, 2048),
+    "P2 mix": (4, 17, 17, 524288),
+    "P2 noise": (4, 17, 2, 524288),
+    "P3 decode": (4, 6, 6, 524288),
+}
+
+
+def test_main_path_sites_come_from_the_plan():
+    from repro_torch.core import constructions, planner
+
+    plan = planner.get_plan(
+        constructions.build_scheme("age", 2, 2, 2),
+        planner.BlockShapes(k=5120, ma=512, mb=4096, s=2, t=2),
+    )
+    sh, n = plan.shapes, plan.n_total
+    na, nb = len(plan.scheme.fa_powers), len(plan.scheme.fb_powers)
+    blk = sh.blk_y[0] * sh.blk_y[1]
+    assert _MAIN_SITES == {
+        "P1 share A": (4, n, na, sh.blk_a[0] * sh.blk_a[1]),
+        "P1 share B": (4, n, nb, sh.blk_b[0] * sh.blk_b[1]),
+        "P2 multiply": (4 * n, sh.blk_a[0], sh.blk_a[1], sh.blk_b[1]),
+        "P2 mix": (4, n, plan.n_workers, blk),
+        "P2 noise": (4, n, plan.scheme.z, blk),
+        "P3 decode": (4, plan.decode_threshold, plan.decode_threshold, blk),
+    }
+
+
+@pytest.mark.parametrize("site", sorted(_MAIN_SITES))
+@pytest.mark.parametrize("masked", [False, True])
+def test_main_path_sites_dispatch_to_their_design(site, masked):
+    batch, m, k, n = _MAIN_SITES[site]
+    z = 2 if masked else 0
+    want = "mma" if site == "P2 multiply" else "skinny"
+    assert K.choose_design("int32", masked, batch, m, k, n, z) == want
+    assert K.choose_design("f32", masked, batch, m, k, n, z) == "simt"
+
+
+@pytest.mark.parametrize(
+    "m,k,z,want",
+    [
+        (32, 32, 0, "skinny"), (33, 32, 0, "mma"), (32, 33, 0, "mma"), (1, 1, 0, "skinny"),
+        (32, 32, 96, "skinny"), (32, 32, 97, "mma"), (8, 2, 126, "skinny"), (8, 2, 127, "mma"),
+    ],
+)
+def test_skinny_cap_edges(m, k, z, want):
+    assert K.choose_design("int32", z > 0, 3, m, k, 1000, z) == want
+    assert K.design_tiles(want, m, k)[0] == (m if want == "skinny" else K.MMA_TILES[0])
+
+
+def _compiled_constant(source: str, name: str) -> int:
+    import re
+
+    text = (K.CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert len(found) == 1, (source, name, found)
+    return int(found[0])
+
+
+def test_fold_and_cap_constants_match_the_source_and_their_bounds():
+    mma_src, skinny_src = "int32_mma.cuh", "int32_skinny.cuh"
+    assert K.MMA_TILES == tuple(_compiled_constant(mma_src, x) for x in ("BM", "BN", "BK"))
+    assert K.MMA_FOLD_K == _compiled_constant(mma_src, "FOLD_K")
+    assert (K.SKINNY_MAX_M, K.SKINNY_MAX_K, K.SKINNY_MAX_TERMS, K.SKINNY_THREADS) == tuple(
+        _compiled_constant(skinny_src, x)
+        for x in ("SKINNY_MAX_M", "SKINNY_MAX_K", "SKINNY_MAX_TERMS", "SKINNY_THREADS")
+    )
+    assert K.SIMT_TILES == tuple(_compiled_constant("modmatmul.cu", x) for x in ("BM", "BN", "BK"))
+    # mma: the merged cross accumulator gains 2 * 255**2 per K step and
+    # must stay below 2**31 (s32) between folds; ll also carries a residue
+    assert K.MMA_FOLD_K * 2 * 255**2 < 2**31
+    assert K.MMA_FOLD_K * 255**2 + (P - 1) < 2**31
+    assert K.MMA_FOLD_K % K.MMA_TILES[2] == 0
+    # skinny: each of K + z terms adds (256c mod p) * bh + c * bl
+    assert K.SKINNY_MAX_TERMS * 2 * (P - 1) * 255 < 2**32
+    assert K.SKINNY_MAX_TERMS >= K.SKINNY_MAX_K + 2  # the protocol's z = 2 fits at any skinny K
+
+
+def test_build_hash_covers_every_source():
+    names = {p.name for p in K.CSRC.glob("*.cu*")}
+    assert {"modmatmul.cu", "common.cuh", "int32_mma.cuh", "int32_skinny.cuh"} <= names
+    text = K.SOURCE.read_text()
+    for name in names - {"modmatmul.cu"}:
+        assert f'#include "{name}"' in text
 
 
 def test_wrapper_checks_shapes_and_mask_counter_space():
@@ -186,3 +285,9 @@ def test_wrapper_checks_shapes_and_mask_counter_space():
             torch.zeros((1, 1), dtype=torch.int32).expand(1, 1 << 31),
             torch.zeros((2, 2), dtype=torch.int32), (0, 0), P,
         )
+
+
+@pytest.mark.parametrize("variant", sorted(ablate.VARIANTS))
+def test_ablation_patches_still_apply_to_the_sources(variant):
+    for fname, old, _ in ablate.VARIANTS[variant]:
+        assert (K.CSRC / fname).read_text().count(old) == 1, (variant, fname, old)
