@@ -5,17 +5,22 @@
 
 Phases (each raises on failure; the exit code is then not 0):
 
-1. build   — compile ``src/repro_torch/csrc/modmatmul.cu`` with nvcc and
-             print the build time, the compiler's register report and
-             the card's name and power limit; count the integer
-             tensor-core instructions in the mma kernel's SASS (raises
-             on none);
-2. kernels — every compiled kernel (int32 mma and skinny, f32 SIMT,
-             plain and fused-mask) against its plain PyTorch version on
-             the card, on ragged, shared-operand, deep and adversarial
-             shapes and at the edges of each design (the skinny cap,
-             the mma fold period, N % 4 != 0, z = 1, 2, 5): exact
-             equality, and each case on the design it was meant for;
+1. build   — compile ``src/repro_torch/csrc/modmatmul.cu`` (it includes
+             ``common.cuh``, ``int32_mma.cuh``, ``f32_wgmma.cuh`` and
+             ``skinny.cuh``) with nvcc and print the build time, the
+             compiler's register report and the card's name and power
+             limit; count the tensor-core and conversion instructions in
+             each kernel's SASS (raises if ``int32_mma`` or
+             ``f32_wgmma`` has no tensor-core instruction, or the
+             f32_wgmma design, its A pre-pass included, an I2F);
+2. kernels — all eight compiled kernels (int32 mma and skinny, f32 wgmma
+             and skinny, plain and fused-mask) against their plain
+             PyTorch versions on the card, on ragged, shared-operand,
+             deep and adversarial shapes and at the edges of each design
+             (the skinny cap, the fold periods of both tensor-core
+             kernels, ragged M/N at their block tile, N % 4 != 0,
+             z = 1, 2, 5): exact equality, and each case on the design
+             it was meant for;
 3. main    — ``run_batched`` (AGE, s = t = z = 2) at the width of one
              Mistral-NeMo-12B attention projection: a = X^T for a
              512-token chunk [batch, 5120, 512], b = W_q [batch, 5120,
@@ -24,11 +29,12 @@ Phases (each raises on failure; the exit code is then not 0):
              and per compiled kernel) prove the kernels carried the
              path; a profiler breakdown of one warm run of each; then
              ``secure_matmul_batched`` once;
-4. f32     — ``run_batched(backend="cuda")`` at depth 1024, so the
-             f32-limb kernel is proven on the path too;
-5. timing  — each kernel at each launch site of its path: time, plain
-             version, bound, library call, design; printed as one JSON
-             line.
+4. f32     — ``run_batched(backend="cuda")`` at the same full-width
+             shapes, unfused and fused, Y exact against the float64
+             oracle, with the launch counts of the f32 kernels;
+5. timing  — each kernel at each launch site of its path: CUDA-event
+             time, profiler device time, plain version, bound, library
+             call, design; printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits with code 2 and prints no result.
@@ -51,9 +57,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 P = 65521
 SOURCES = {
-    "mma": "src/repro_torch/csrc/int32_mma.cuh",
-    "skinny": "src/repro_torch/csrc/int32_skinny.cuh",
-    "simt": "src/repro_torch/csrc/modmatmul.cu",
+    "int32_mma": "src/repro_torch/csrc/int32_mma.cuh",
+    "int32_skinny": "src/repro_torch/csrc/skinny.cuh",
+    "f32_wgmma": "src/repro_torch/csrc/f32_wgmma.cuh",
+    "f32_skinny": "src/repro_torch/csrc/skinny.cuh",
 }
 TPU_KERNELS = {
     "modmatmul_int32": "src/repro/kernels/modmatmul/kernel.py:152",
@@ -61,12 +68,15 @@ TPU_KERNELS = {
     "modmatmul_int32_masked": "src/repro/kernels/modmatmul/kernel.py:193",
     "modmatmul_f32_masked": "src/repro/kernels/modmatmul/kernel.py:193",
 }
-# Peaks of one H100 SXM (dense): HBM bytes/s and int8 tensor-core ops/s
-# (the rate the limb dots map onto) are NVIDIA's published figures; the
+# Peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor-core ops/s
+# (the rate the limb dots map onto; the bound of either variant, since
+# both compute the same function) and fp16 tensor-core flop/s (the floor
+# of f32_wgmma's own arithmetic) are NVIDIA's published figures; the
 # 32-bit integer pipe (the threefry mask stream and the mask terms) does
 # 64 lanes per SM per clock: 132 SMs * 64 * 1.98 GHz.
 HBM_BPS = 3.35e12
 INT8_TC_OPS = 1979e12
+FP16_TC_FLOPS = 989e12
 INT32_OPS = 132 * 64 * 1.98e9
 # 32-bit ALU ops per threefry2x32 word and its Barrett reduction: 20
 # rounds of add/rotate/xor, 5 key injections, the counter add, and
@@ -90,17 +100,23 @@ def phase_build(K) -> None:
     for line in K.BUILD_INFO.get("log", "").splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "warning")):
             log("[build]", line.strip())
-    counts = sass_tensor_core_ops(K.BUILD_INFO["library"])
+    counts = sass_op_counts(K.BUILD_INFO["library"])
     for fn, n in counts.items():
-        log(f"[build] {fn}: {n} integer tensor-core instructions")
-    mma = {fn: n for fn, n in counts.items() if "modmatmul_int32_mma" in fn}
-    if not mma or min(mma.values()) == 0:
-        raise AssertionError(f"no integer tensor-core instruction in the mma kernel: {counts}")
+        log(f"[build] {fn}: " + ", ".join(f"{op} {c}" for op, c in n.items()))
+    for kernel in ("modmatmul_int32_mma", "modmatmul_f32_wgmma"):
+        got = {fn: n for fn, n in counts.items() if kernel in fn}
+        if not got or min(n["tensor_core"] for n in got.values()) == 0:
+            raise AssertionError(f"no tensor-core instruction in {kernel}: {got}")
+    # the f32_wgmma design: its A pre-pass and its main kernel
+    i2f = {fn: n["I2F"] for fn, n in counts.items() if "wgmma_f32" in fn and n["I2F"]}
+    if i2f:
+        raise AssertionError(f"f32_wgmma converts with I2F: {i2f}")
 
 
-def sass_tensor_core_ops(library: str) -> dict:
-    """Kernel (mangled name) -> count of IMMA/IGMMA/HGMMA-class opcodes
-    in the library's SASS, from cuobjdump."""
+def sass_op_counts(library: str) -> dict:
+    """Kernel (mangled name) -> counts of tensor-core opcodes
+    (IMMA/IGMMA/HGMMA/GMMA) and of the conversions I2F, F2I and FRND in
+    the library's SASS, from cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
@@ -110,9 +126,13 @@ def sass_tensor_core_ops(library: str) -> dict:
         head = re.search(r"Function : (\S+)", line)
         if head:
             fn = head.group(1)
-            counts[fn] = 0
-        elif fn and re.search(r"\b(IMMA|IGMMA|HGMMA|GMMA)\b", line):
-            counts[fn] += 1
+            counts[fn] = {"tensor_core": 0, "I2F": 0, "F2I": 0, "FRND": 0}
+        elif fn:
+            if re.search(r"\b(IMMA|IGMMA|HGMMA|GMMA)\b", line):
+                counts[fn]["tensor_core"] += 1
+            for op in ("I2F", "F2I", "FRND"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
     return counts
 
 
@@ -156,8 +176,18 @@ def kernel_cases():
               ((2, 200, 96), (2, 96, 260)), ((3, 130, 64), (64, 132))]
     cases += [(sa, sb, mode, z) for sa, sb in edges for z in (1, 2, 5)
               for mode in ("uniform", "maximal")]
-    # the depth folds: mma every 16512 K, the f32 kernel every 128 and
-    # the reference every 33024; cross each edge and fold twice
+    # f32_skinny's short finish: K + z = 64 and 65 terms
+    cases += [((2, 17, 32), (2, 32, 1000), mode, z) for z in (32, 33)
+              for mode in ("maximal", "high_limb")]
+    # f32_wgmma's fold edges (every 128 K; the second consumer's first
+    # fold after 64) and ragged M/N at its 128 x 128 block tile
+    cases += [((2, 40, k), (2, k, 70), mode, 2) for k in (255, 257, 511, 513)
+              for mode in ("maximal", "high_limb")]
+    cases += [((2, 129, 513), (2, 513, 127), "maximal", 3),
+              ((127, 256), (3, 256, 130), "high_limb", 5),
+              ((2, 250, 64), (64, 257), "maximal", 1)]
+    # the depth folds: mma every 16512 K and the reference every 33024;
+    # cross each edge and fold twice
     cases += [((3, k), (k, 5), "maximal", 2)
               for k in (16511, 16512, 16513, 33023, 33024, 33025, 2 * 16512 + 5, 2 * 33024 + 5)]
     cases += [((3, k), (k, 8), "maximal", 2) for k in (16512, 16516, 2 * 16512 + 8)]
@@ -241,6 +271,27 @@ def geometry(sa, sb):
     return (batch, sa[-2], sa[-1], sb[-1])
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Summed device time of ``reps`` calls of ``fn`` under torch.profiler
+    over ``reps``: free of the wrapper's host cost, which a lone launch's
+    CUDA-event time includes.  None if the profiler recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            total += dev_us if dev_us is not None else getattr(ev, "self_cuda_time_total", 0.0)
+    return total / 1e3 / reps if total > 0 else None
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
     fn()
@@ -276,7 +327,10 @@ MAIN_BY_KERNEL = {
     False: {"int32_mma": 1, "int32_skinny": 5},
     True: {"int32_mma": 1, "int32_skinny": 1, "int32_skinny_masked": 3},
 }
-F32_BY_KERNEL = {False: {"f32_simt": 6}, True: {"f32_simt": 2, "f32_simt_masked": 3}}
+F32_BY_KERNEL = {
+    False: {"f32_wgmma": 1, "f32_skinny": 5},
+    True: {"f32_wgmma": 1, "f32_skinny": 1, "f32_skinny_masked": 3},
+}
 
 
 def expect_launches(K, kernel, masked_kernel, by_kernel, fused: bool, tag: str) -> None:
@@ -355,7 +409,7 @@ def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict
 
 def phase_f32(torch, K, protocol, planner, constructions, args) -> dict:
     scheme = constructions.build_scheme("age", 2, 2, 2)
-    batch, k, ma, mb = args.batch, 1024, 512, 4096
+    batch, k, ma, mb = args.batch, 5120, 512, 4096
     plan = planner.get_plan(scheme, planner.BlockShapes(k=k, ma=ma, mb=mb, s=2, t=2))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed + 2)
@@ -368,7 +422,20 @@ def phase_f32(torch, K, protocol, planner, constructions, args) -> dict:
         counts[fused] = drive(torch, K, protocol, plan, a, b, want,
                               backend="cuda", fused=fused, tag=tag, seed=args.seed)
         expect_launches(K, "modmatmul_f32", "modmatmul_f32_masked", F32_BY_KERNEL, fused, tag)
-    return {"plan": plan, "counts": counts, "batch": batch}
+    times = {}
+    for fused in (False, True):
+        ms = []
+        for _ in range(args.reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            protocol.run_batched(plan, a, b, seed=args.seed, backend="cuda", fused_masks=fused)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        times["fused" if fused else "unfused"] = statistics.median(ms)
+    log(f"[f32] run_batched(backend='cuda') median ms over {args.reps}: {times}")
+    return {"plan": plan, "counts": counts, "batch": batch, "times": times}
 
 
 def profile_breakdown(torch, protocol, plan, a, b, seed: int, top: int = 12) -> None:
@@ -461,6 +528,7 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
             del got, exp
             reps = args.reps
             ms = cuda_ms(torch, kern, reps)
+            dev_ms = device_ms(torch, kern, reps)
             plain_ms = cuda_ms(torch, plain, reps)
             library_ms = None
             if not masked:  # float64 matmul + remainder: exact while K*(p-1)**2 < 2**53
@@ -475,6 +543,7 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
             alu_ops = (B * z * N * THREEFRY_OPS + B * M * N * z * MASK_TERM_OPS) if masked else 0
             t_bytes = nbytes / HBM_BPS * 1e3
             t_ops = (tc_ops / INT8_TC_OPS + alu_ops / INT32_OPS) * 1e3
+            base = f"{variant}_{design}"
             entry = {
                 "name": name,
                 "kernel": compiled,
@@ -482,20 +551,24 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
                 "site": site,
                 "shape": f"{list(sa)}@{list(sb)}" + (f"+v{[sa[-2], z]}" if masked else ""),
                 "route": "cuda",
-                "source": SOURCES[design],
+                "source": SOURCES[base],
                 "replaces": TPU_KERNELS[name],
                 "launches": n_launch,
                 "max_abs_err": err,
                 "ms": round(ms, 4),
+                "device_ms": None if dev_ms is None else round(dev_ms, 4),
                 "plain_ms": round(plain_ms, 4),
                 "bound_ms": round(max(t_bytes, t_ops), 4),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None if library_ms is None else round(library_ms, 4),
             }
+            if base == "f32_wgmma":  # two fp16 sets of depth 2K: 8 flop per MNK
+                entry["fp16_floor_ms"] = round(8 * B * M * Kd * N / FP16_TC_FLOPS * 1e3, 4)
             seen[key] = entry
             entries.append(entry)
             log(f"[timing] {compiled:20s} {site:12s} {entry['shape']:44s} "
-                f"{ms:9.3f} ms  plain {plain_ms:9.3f}  bound {entry['bound_ms']:7.3f} "
+                f"{ms:9.3f} ms  device {entry['device_ms']}  plain {plain_ms:9.3f}  "
+                f"bound {entry['bound_ms']:7.3f} "
                 f"({entry['bound_by']})  library {library_ms}")
             del a, b, v
     return entries
@@ -539,7 +612,8 @@ def main() -> int:
         if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"compiled kernel {name} was not launched on its path")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
-        f"run_batched ms {main_run['times']}, peak {main_run['peak']} bytes")
+        f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
+        f"peak {main_run['peak']} bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

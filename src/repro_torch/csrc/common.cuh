@@ -1,7 +1,9 @@
 // Shared pieces of the GF(p) matmul kernels (p < 2**16): launch
-// parameters, the integer and float modular helpers, the threefry mask
-// word, and the asynchronous-copy primitives.  Included by
-// modmatmul.cu, the one translation unit the kernels are built from.
+// parameters, the integer and float modular helpers, the limb
+// conversions, the threefry mask word and the fused-mask epilogue of a
+// wgmma tile, and the asynchronous-copy, wgmma and mbarrier primitives.
+// Included by modmatmul.cu, the one translation unit the kernels are
+// built from.
 #pragma once
 
 #include <cstdint>
@@ -22,9 +24,7 @@ struct Params {
   uint32_t f_hihi;   // 2**16 mod p
   uint32_t f_mid;    // 2**8 mod p
   uint32_t k0, k1;   // threefry key words (MASKED only)
-  float pf, inv_p;          // p and 1/p rounded to float
-  float hihi_hi, hihi_lo;  // (f_hihi * 256) mod p, f_hihi mod p
-  float mid_hi, mid_lo;    // (f_mid * 256) mod p, f_mid mod p
+  float pf, inv_p;   // p and 1/p rounded to float
 };
 
 // ---------------------------------------------------------------------
@@ -52,25 +52,53 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t x, uint32_t y, uint32_t p) 
 }
 
 // ---------------------------------------------------------------------
-// float helpers: kernel.py's _modf32 / _mulmod_const
+// float helpers: kernel.py's _modf32, and the limb conversions
 // ---------------------------------------------------------------------
-// x is an exact integer below 2**24.  The quotient comes from a multiply
-// by the rounded reciprocal instead of an IEEE division (a dozen
-// instructions): x * (1/p) is within one of x/p for x < 2**24, so
-// floor() may be one off either way, and both corrections below undo it.
+// x mod p for x an exact integer with |x| < 2**24.  The quotient comes from
+// a multiply by the rounded reciprocal, rounded to an integer by the
+// 1.5 * 2**23 magic add (an FFMA and an FADD; floorf would be FRND on the
+// conversion pipe).  x * (1/p) is within one of x/p for x < 2**24, so the
+// rounded quotient may be one off either way, and both corrections
+// below undo it; x - q*p is exact in one FFMA.
+constexpr float ROUND_MAGIC = 12582912.f;  // 1.5 * 2**23: ulp 1 around it
+// The three-op part: x - q*p with q within one of x/p, so the result is
+// in (-p, p) for |x| < 2**24 (the negative side included).  A running
+// sum needs no more than this to stay bounded.
+__device__ __forceinline__ float fold_f(float x, float pf, float inv_p) {
+  const float q = __fsub_rn(__fmaf_rn(x, inv_p, ROUND_MAGIC), ROUND_MAGIC);
+  return __fmaf_rn(-q, pf, x);
+}
 __device__ __forceinline__ float mod_f(float x, float pf, float inv_p) {
-  float r = x - floorf(x * inv_p) * pf;
+  float r = fold_f(x, pf, inv_p);
   r = r < 0.f ? r + pf : r;
   return r >= pf ? r - pf : r;
 }
 
-// x * c mod p for x in [0, p): split x into 8-bit limbs so each product
-// stays below 2**24 (c_hi = (c*256) mod p, c_lo = c mod p).
-__device__ __forceinline__ float mulmod_const(float x, float c_hi, float c_lo, float pf,
-                                              float inv_p) {
-  float x_hi = floorf(x * (1.f / 256.f));
-  float x_lo = x - x_hi * 256.f;
-  return mod_f(mod_f(x_hi * c_hi, pf, inv_p) + mod_f(x_lo * c_lo, pf, inv_p), pf, inv_p);
+// An exact integer float in [0, 2**23) as uint32, without F2I: adding
+// 2**23 puts the integer in the low mantissa bits.
+__device__ __forceinline__ uint32_t float_to_u(float x) {
+  return __float_as_uint(__fadd_rn(x, 8388608.f)) - 0x4B000000u;
+}
+
+// Byte `sel` (0 = lo limb, 1 = hi limb) of x < 2**16 as an exact float,
+// without I2F: PRMT puts the byte under the exponent of 2**23, and
+// subtracting 2**23 leaves it.
+template <int SEL>
+__device__ __forceinline__ float limb_f(uint32_t x) {
+  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650 | SEL)) - 8388608.f;
+}
+
+// x0, x1 < 2**16 -> fp16 pairs (lo(x0), lo(x1)) and (hi(x0), hi(x1)),
+// exact, in two PRMTs and two HSUB2 after one PRMT that gathers the
+// bytes: PRMT puts each byte under the byte 0x64, which makes the fp16
+// value 1024 + byte, and subtracting (1024, 1024) leaves the byte.  The
+// lower half of each word is x0's limb.
+__device__ __forceinline__ void limbs_h2(uint32_t x0, uint32_t x1, uint32_t& lo, uint32_t& hi) {
+  const uint32_t t = __byte_perm(x0, x1, 0x5140);  // x0.b0 x1.b0 x0.b1 x1.b1
+  const uint32_t l = __byte_perm(t, 0x64646464u, 0x4140);
+  const uint32_t h = __byte_perm(t, 0x64646464u, 0x4342);
+  asm("sub.rn.f16x2 %0, %1, %2;" : "=r"(lo) : "r"(l), "r"(0x64006400u));
+  asm("sub.rn.f16x2 %0, %1, %2;" : "=r"(hi) : "r"(h), "r"(0x64006400u));
 }
 
 // ---------------------------------------------------------------------
@@ -140,6 +168,104 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------
+// wgmma synchronization (sm_90a)
+// ---------------------------------------------------------------------
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator accesses across the
+// asynchronous wgmma window.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) asm volatile("" : "+r"(d[e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+// ---------------------------------------------------------------------
+// mbarrier (sm_90): arrival-count barriers in shared memory
+// ---------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------
+// the fused mask of a wgmma tile: kernel.py's _apply_fused_mask
+// ---------------------------------------------------------------------
+// r += v[row, :] @ R[:, col]  (mod p) for one thread's residues r (< p)
+// in wgmma's m64nN accumulator layout: r[4j + 2h + c] is row row0 + 8h,
+// block column col0 + 8j + c, for n8 tiles j < NJ.  NTHREADS threads
+// (thread index tid) run it together: they make each of the block's BN
+// columns' mask words once, NTHREADS / BN mask rows per pass, into
+// mask_r (NTHREADS words of idle shared memory), with sync() between
+// passes.  The caller syncs before mask_r is first written.
+template <int NTHREADS, int BN, int NJ, typename Sync>
+__device__ __forceinline__ void add_fused_mask(uint32_t (&r)[4 * NJ], const Params& P,
+                                               uint32_t* mask_r, int tid, int bb, int n0,
+                                               int row0, int col0, Sync sync) {
+  static_assert(NTHREADS % BN == 0, "the mask pass maps threads onto whole rows of words");
+  constexpr int ZSTEP = NTHREADS / BN;
+  for (int z0 = 0; z0 < P.z; z0 += ZSTEP) {
+    {
+      const int zi = z0 + tid / BN;
+      const int col = n0 + tid % BN;
+      mask_r[tid] = (zi < P.z && col < P.N)
+                        ? mask_word(P, (uint32_t)bb, (uint32_t)zi, (uint32_t)col)
+                        : 0u;
+    }
+    sync();
+    const int zn = min(ZSTEP, P.z - z0);
+    for (int dz = 0; dz < zn; ++dz) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= P.M) continue;
+        const uint32_t vz = (uint32_t)P.v[(size_t)row * P.z + z0 + dz];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const uint32_t w = mask_r[dz * BN + col0 + 8 * j + c];
+            // v < p and w < p: the product fits uint32
+            const int e = 4 * j + 2 * h + c;
+            r[e] = add_mod(r[e], barrett(vz * w, P.p, P.mu), P.p);
+          }
+      }
+    }
+    sync();
+  }
 }
 
 }  // namespace gfmm

@@ -153,23 +153,6 @@ __device__ __forceinline__ void wgmma_u8(uint32_t (&d)[ACC], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(1));  // scale-d = 1: d += a @ b
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator accesses across the
-// asynchronous wgmma window.
-__device__ __forceinline__ void fence_operands(uint32_t (&d)[ACC]) {
-#pragma unroll
-  for (int e = 0; e < ACC; ++e) asm volatile("" : "+r"(d[e])::"memory");
-}
-
 // Stage the int32 tiles A[m0:+BM, k0:+BK] and B[k0:+BK, n0:+BN] into one
 // ring slot; ragged edges are zero-filled.  VEC: K % 4 == 0, N % 4 == 0
 // and 16-byte aligned operands, so 16-byte copies never straddle an edge.
@@ -356,41 +339,11 @@ __global__ void __launch_bounds__(THREADS, 1) modmatmul_int32_mma(const Params P
   const int col0 = wg_n * WGN + 2 * tq;            // + 8j + c, within the block
 
   if constexpr (MASKED) {
-    // Add v[row, :] @ R[:, col].  The block makes each of its columns'
-    // mask words once, ZSTEP mask rows per pass, into the idle staging
-    // ring; every thread applies them to its accumulators.
+    // the mask words go into the idle staging ring
     cp_async_wait<0>();
     __syncthreads();
-    uint32_t* mask_r = reinterpret_cast<uint32_t*>(ring);
-    for (int z0 = 0; z0 < P.z; z0 += ZSTEP) {
-      {
-        const int zi = z0 + tid / BN;
-        const int col = n0 + tid % BN;
-        mask_r[tid] = (zi < P.z && col < N)
-                          ? mask_word(P, (uint32_t)bb, (uint32_t)zi, (uint32_t)col)
-                          : 0u;
-      }
-      __syncthreads();
-      const int zn = min(ZSTEP, P.z - z0);
-      for (int dz = 0; dz < zn; ++dz) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + 8 * h;
-          if (row >= M) continue;
-          const uint32_t vz = (uint32_t)P.v[(size_t)row * P.z + z0 + dz];
-#pragma unroll
-          for (int j = 0; j < ACC / 4; ++j)
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const uint32_t r = mask_r[dz * BN + col0 + 8 * j + c];
-              // v < p and r < p: the product fits uint32
-              const int e = 4 * j + 2 * h + c;
-              ll[e] = add_mod(ll[e], barrett(vz * r, P.p, P.mu), P.p);
-            }
-        }
-      }
-      __syncthreads();
-    }
+    add_fused_mask<THREADS, BN, ACC / 4>(ll, P, reinterpret_cast<uint32_t*>(ring), tid, bb, n0,
+                                         row0, col0, [] { __syncthreads(); });
   }
 
   int* __restrict__ out = P.out + (size_t)bb * (size_t)M * (size_t)N;

@@ -1,17 +1,23 @@
 """Hopper kernels for exact GF(p) matmul, p < 2**16: build, binding, wrappers.
 
 The CUDA sources are under ``repro_torch/csrc/``; ``modmatmul.cu`` is the
-one translation unit and includes the others.  Three compiled designs,
+one translation unit and includes the others.  Four compiled designs,
 each with a fused-mask form, replace the three Pallas tile bodies of
 ``repro.kernels.modmatmul.kernel`` — each source says how:
 
-* ``"mma"``    (``int32_mma.cuh``): the int32 variant on the integer
-  tensor cores (u8 limbs, ``mma.sync`` m16n8k32, s32 accumulators), for
+* ``int32_mma``  (``int32_mma.cuh``): the int32 variant on the integer
+  tensor cores (u8 limbs, ``wgmma`` m64n64k32, s32 accumulators), for
   every int32 product that is not skinny;
-* ``"skinny"`` (``int32_skinny.cuh``): the int32 variant for M <= 32 and
-  K <= 32, one pass over B and over the output, the mask words made as
-  extra rows of B;
-* ``"simt"``   (``modmatmul.cu``): the f32-limb variant on the CUDA cores.
+* ``f32_wgmma``  (``f32_wgmma.cuh``): the f32-limb variant on the fp16
+  tensor cores (8-bit limbs exact in fp16, ``wgmma`` m64n128k16 into two
+  f32 accumulator sets folded every 128 K; A's planes from a pre-pass
+  into device scratch, B's split by warp-specialized producers), for
+  every f32 product that is not skinny;
+* ``int32_skinny`` and ``f32_skinny`` (``skinny.cuh``): either variant
+  for M <= 32, K <= 32 and K + z <= 128, one pass over B and over the
+  output, the mask words made as extra rows of B; one template whose
+  arithmetic (``dp2a`` on packed coefficients, or float limbs) is its
+  policy parameter.
 
 :func:`choose_design` is the shape rule.
 
@@ -23,8 +29,8 @@ imported when this module is imported.
 
 Wrappers: :func:`modmatmul_cuda` and :func:`modmatmul_masked_cuda`.  On
 CUDA tensors they check device, dtype, contiguity and shape, allocate
-the output, launch on the current stream, raise if the launch failed,
-and add one to the launch counts.  On CPU tensors they run the kernel's
+the output (and the scratch a design asks for), launch on the current
+stream, raise if the launch failed, and add one to the launch counts.  On CPU tensors they run the kernel's
 plain version from ``ref.py`` (and count nothing).
 """
 from __future__ import annotations
@@ -56,12 +62,14 @@ NVCC_FLAGS = (
 # (load_library checks the mirror against the built library).
 MMA_TILES = (128, 128, 32)  # int32_mma.cuh: BM, BN, BK
 MMA_FOLD_K = 16512  # int32_mma.cuh: FOLD_K, the accumulator fold period
-SKINNY_MAX_M = 32  # int32_skinny.cuh: the skinny design's shape cap
+SKINNY_MAX_M = 32  # skinny.cuh: the skinny designs' shape cap
 SKINNY_MAX_K = 32
-SKINNY_MAX_TERMS = 128  # K + z: the skinny accumulators' wrap bound
+SKINNY_MAX_TERMS = 128  # K + z: the skinny accumulators' wrap / 2**24 bound
 SKINNY_THREADS = 256
-SIMT_TILES = (64, 64, 32)  # modmatmul.cu: BM, BN, BK of the f32 kernel
-DESIGNS = {"simt": 0, "mma": 1, "skinny": 2}
+WGMMA_TILES = (128, 128, 32)  # f32_wgmma.cuh: BM, BN, BK
+WGMMA_FOLD_K = 128  # f32_wgmma.cuh: FOLD_K, the f32 sets' fold period
+# compiled design -> its id in modmatmul_launch
+DESIGNS = {"int32_mma": 1, "int32_skinny": 2, "f32_wgmma": 3, "f32_skinny": 4}
 _MAX_GRID_X = (1 << 31) - 1
 _MAX_GRID_YZ = 65535
 
@@ -72,7 +80,7 @@ _MAX_GRID_YZ = 65535
 KERNEL_NAMES = ("modmatmul_int32", "modmatmul_int32_masked", "modmatmul_f32", "modmatmul_f32_masked")
 COMPILED_NAMES = (
     "int32_mma", "int32_mma_masked", "int32_skinny", "int32_skinny_masked",
-    "f32_simt", "f32_simt_masked",
+    "f32_wgmma", "f32_wgmma_masked", "f32_skinny", "f32_skinny_masked",
 )
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 LAUNCH_SHAPES = {name: collections.Counter() for name in KERNEL_NAMES}
@@ -95,19 +103,18 @@ def _kernel_name(variant: str, masked: bool) -> str:
 
 
 def choose_design(variant: str, masked: bool, batch: int, m: int, k: int, n: int, z: int = 0) -> str:
-    """The compiled kernel one product runs on: ``"skinny"`` for int32
-    products with M <= 32, K <= 32 and K + z <= 128 (z mask rows count as
-    rows of B), ``"mma"`` for every other int32 product, ``"simt"`` for
-    the f32 variant.  ``batch`` and ``n`` only set the grid, which
-    every design tiles without limit on N and up to 65535 on batch."""
-    if variant == "f32":
-        return "simt"
-    if variant != "int32":
+    """The compiled kernel one product runs on: ``"skinny"`` for products
+    of either variant with M <= 32, K <= 32 and K + z <= 128 (z mask rows
+    count as rows of B), otherwise ``"mma"`` for the int32 variant and
+    ``"wgmma"`` for the f32 variant.  ``batch`` and ``n`` only set the
+    grid, which every design tiles without limit on N and up to 65535 on
+    batch."""
+    if variant not in ("int32", "f32"):
         raise ValueError(f"unknown kernel variant {variant}")
     terms = k + (z if masked else 0)
     if m <= SKINNY_MAX_M and k <= SKINNY_MAX_K and terms <= SKINNY_MAX_TERMS:
         return "skinny"
-    return "mma"
+    return "mma" if variant == "int32" else "wgmma"
 
 
 def skinny_cols(m: int) -> int:
@@ -121,8 +128,8 @@ def design_tiles(design: str, m: int, k: int) -> Tuple[int, int, int]:
     all M rows and the whole contraction across its columns."""
     if design == "mma":
         return MMA_TILES
-    if design == "simt":
-        return SIMT_TILES
+    if design == "wgmma":
+        return WGMMA_TILES
     if design == "skinny":
         return (m, SKINNY_THREADS * skinny_cols(m), k)
     raise ValueError(f"unknown design {design}")
@@ -131,8 +138,9 @@ def design_tiles(design: str, m: int, k: int) -> Tuple[int, int, int]:
 def _grid_ok(design: str, batch: int, m: int, n: int) -> bool:
     bm, bn, _ = design_tiles(design, m, 1)
     col_blocks = -(-n // bn)
-    if design == "simt":
-        return col_blocks <= _MAX_GRID_X and -(-m // bm) <= _MAX_GRID_YZ and batch <= _MAX_GRID_YZ
+    if design == "wgmma":  # grid (M tiles, N tiles, batch); A's split: (K chunks, M, batch)
+        return (-(-m // bm) <= _MAX_GRID_X and col_blocks <= _MAX_GRID_YZ
+                and m <= _MAX_GRID_YZ and batch <= _MAX_GRID_YZ)
     if design == "mma":
         col_blocks *= -(-m // bm)  # M tiles and N tiles share grid.x
     return col_blocks <= _MAX_GRID_X and batch <= _MAX_GRID_YZ
@@ -187,8 +195,11 @@ def bind(so: Path):
         ctypes.c_uint,  # p
         ctypes.c_void_p, ctypes.c_int,  # v, z
         ctypes.c_uint, ctypes.c_uint,  # key words
+        ctypes.c_void_p,  # scratch
         ctypes.c_void_p,  # stream
     ]
+    lib.modmatmul_scratch_bytes.restype = ctypes.c_longlong
+    lib.modmatmul_scratch_bytes.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -206,10 +217,10 @@ def load_library():
         log = compile_library(SOURCE, so)
         BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log)
     lib = bind(so)
-    consts = (ctypes.c_int * 11)()
+    consts = (ctypes.c_int * 12)()
     lib.modmatmul_constants(consts)
     mirror = (*MMA_TILES, MMA_FOLD_K, SKINNY_MAX_M, SKINNY_MAX_K, SKINNY_MAX_TERMS,
-              SKINNY_THREADS, *SIMT_TILES)
+              SKINNY_THREADS, *WGMMA_TILES, WGMMA_FOLD_K)
     if tuple(consts) != mirror:
         raise RuntimeError(f"{so.name}: compiled constants {tuple(consts)} != kernel.py's {mirror}")
     BUILD_INFO.update(library=str(so))
@@ -264,9 +275,14 @@ def _check_mask(v: torch.Tensor, batch: int, m: int, n: int) -> int:
 
 
 def launch_into(lib, design: str, a, b, out, p: int, v=None, key=(0, 0)) -> int:
-    """One launch of ``lib``'s ``design`` writing ``out``, on the current
-    stream, with no checks and no counting; returns the CUDA error."""
+    """One launch of ``lib``'s compiled ``design`` (a key of ``DESIGNS``,
+    e.g. ``"f32_wgmma"``) writing ``out``, on the current stream, with no
+    checks and no counting; returns the CUDA error."""
     batch, m, k, n = _geometry(a, b)
+    nbytes = lib.modmatmul_scratch_bytes(DESIGNS[design], batch if a.dim() == 3 else 1, m, k)
+    # freed on return: the caching allocator hands it out again only to
+    # work queued after this launch on the same stream
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=a.device) if nbytes else None
     with torch.cuda.device(a.device):
         return lib.modmatmul_launch(
             DESIGNS[design], int(v is not None),
@@ -276,6 +292,7 @@ def launch_into(lib, design: str, a, b, out, p: int, v=None, key=(0, 0)) -> int:
             p,
             None if v is None else v.data_ptr(), 0 if v is None else int(v.shape[1]),
             int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF,
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(a.device).cuda_stream,
         )
 
@@ -291,14 +308,15 @@ def _launch(variant, a, b, p, v=None, key=(0, 0)) -> torch.Tensor:
         raise ValueError(f"{name}: dims must be below 2**31")
     z = _check_mask(v, batch, m, n) if masked else 0
     design = choose_design(variant, masked, batch, m, k, n, z)
-    compiled = f"{variant}_{design}" + ("_masked" if masked else "")
+    base = f"{variant}_{design}"
+    compiled = base + ("_masked" if masked else "")
     if not _grid_ok(design, batch, m, n):
         raise ValueError(f"{compiled}: batch {batch} / M {m} / N {n} exceed the launch grid")
     out_shape = (batch, m, n) if a.dim() == 3 or b.dim() == 3 else (m, n)
     out = torch.empty(out_shape, dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
-    err = launch_into(load_library(), design, a, b, out, p, v, key)
+    err = launch_into(load_library(), base, a, b, out, p, v, key)
     if err != 0:
         raise RuntimeError(f"{compiled}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1

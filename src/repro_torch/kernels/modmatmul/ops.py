@@ -6,8 +6,10 @@ Backends of :func:`mod_matmul` / :func:`mod_matmul_masked`:
                      ``"pallas_int32"``): integer limb dots on the
                      tensor cores, or the skinny kernel for small M
                      and K (``kernel.choose_design``); no depth limit.
-* ``"cuda"``       — the Hopper f32-limb kernel (counterpart of
-                     ``"pallas"``).
+* ``"cuda"``       — the Hopper f32-limb kernels (counterpart of
+                     ``"pallas"``): 8-bit limbs exact in fp16 on the
+                     tensor cores, or the skinny kernel with float
+                     limbs for small M and K; no depth limit.
 * ``"f32limb"`` / ``"int32"`` — the plain torch paths of ``core.gf``,
                      for CPU tensors only.
 * ``"auto"``       — ``"cuda_int32"`` on a CUDA tensor (its folded

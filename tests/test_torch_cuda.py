@@ -40,7 +40,8 @@ def _draw(rng, shape, mode, p=P):
 # (a shape, b shape, p, mode) by the int32 design each lands on: shared
 # operands on either side, ragged M/N/K around the tiles and the lazy
 # reduction, a deep K; for skinny also the M/K cap, each row bucket and
-# N % 4 != 0.  The f32 variant runs every case on its SIMT kernel.
+# N % 4 != 0.  The f32 variant runs each case on its own design of the
+# same shape rule: "wgmma" where int32 takes "mma", "skinny" otherwise.
 _CASES = {
     "mma": [
         ((3, 17, 129), (3, 129, 100), 65521, "uniform"),
@@ -77,7 +78,7 @@ def test_kernel_matches_plain_version(cuda, variant, design, case):
     torch.cuda.synchronize()
     assert K.LAUNCHES[f"modmatmul_{variant}"] == 1
     assert K.LAUNCHES[f"modmatmul_{variant}_masked"] == 1
-    ran = design if variant == "int32" else "simt"
+    ran = design if variant == "int32" else {"mma": "wgmma", "skinny": "skinny"}[design]
     assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == {
         f"{variant}_{ran}": 1, f"{variant}_{ran}_masked": 1}
     assert torch.equal(got, ref.PLAIN[variant](a, b, p))
@@ -91,6 +92,18 @@ def test_int32_kernel_folds_past_the_raw_accumulator_bound(cuda):
         b = torch.full((k, 5), P - 1, dtype=torch.int32, device=cuda)
         got = K.modmatmul_cuda(a, b, P, "int32")
         assert bool((got == (k * (P - 1) ** 2) % P).all())
+
+
+@pytest.mark.parametrize("k", [127, 129, 255, 257, 4 * 128 + 1, 2 * 33024 + 5])
+def test_f32_kernel_folds_at_every_period(cuda, k):
+    # all operands p - 1: every limb sum at its largest, crossing the 128 K
+    # fold of either consumer warpgroup (the second folds first after 64)
+    a = torch.full((2, 130, k), P - 1, dtype=torch.int32, device=cuda)
+    b = torch.full((2, k, 129), P - 1, dtype=torch.int32, device=cuda)
+    K.reset_launch_counts()
+    got = K.modmatmul_cuda(a, b, P, "f32")
+    assert K.LAUNCHES_BY_KERNEL["f32_wgmma"] == 1
+    assert bool((got == (k * (P - 1) ** 2) % P).all())
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):

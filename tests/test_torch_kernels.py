@@ -163,7 +163,8 @@ def test_flatten_batch_keeps_a_shared_operand_2d():
 def test_tiles_and_padding_accounting():
     # the skinny design covers all M rows and all of K, 2 columns a thread
     assert ops.pick_tiles(17, 6, 1000, backend="cuda_int32") == (17, 512, 6)
-    assert ops.pick_tiles(17, 6, 1000, backend="cuda") == K.SIMT_TILES
+    assert ops.pick_tiles(17, 6, 1000, backend="cuda") == (17, 512, 6)
+    assert ops.pick_tiles(256, 2560, 2048, backend="cuda") == K.WGMMA_TILES
     assert ops.pick_tiles(256, 2560, 2048, backend="cuda_int32") == K.MMA_TILES
     assert ops.padded_shape(17, 6, 1000, (17, 512, 6)) == (17, 6, 1024)
     assert ops.padded_shape(17, 6, 1000, (64, 64, 32)) == (64, 32, 1024)
@@ -222,9 +223,9 @@ def test_main_path_sites_come_from_the_plan():
 def test_main_path_sites_dispatch_to_their_design(site, masked):
     batch, m, k, n = _MAIN_SITES[site]
     z = 2 if masked else 0
-    want = "mma" if site == "P2 multiply" else "skinny"
-    assert K.choose_design("int32", masked, batch, m, k, n, z) == want
-    assert K.choose_design("f32", masked, batch, m, k, n, z) == "simt"
+    deep = site == "P2 multiply"
+    assert K.choose_design("int32", masked, batch, m, k, n, z) == ("mma" if deep else "skinny")
+    assert K.choose_design("f32", masked, batch, m, k, n, z) == ("wgmma" if deep else "skinny")
 
 
 @pytest.mark.parametrize(
@@ -237,6 +238,10 @@ def test_main_path_sites_dispatch_to_their_design(site, masked):
 def test_skinny_cap_edges(m, k, z, want):
     assert K.choose_design("int32", z > 0, 3, m, k, 1000, z) == want
     assert K.design_tiles(want, m, k)[0] == (m if want == "skinny" else K.MMA_TILES[0])
+    # the f32 variant has the same cap: its skinny accumulators stay below 2**24
+    f32 = "skinny" if want == "skinny" else "wgmma"
+    assert K.choose_design("f32", z > 0, 3, m, k, 1000, z) == f32
+    assert K.design_tiles(f32, m, k)[0] == (m if f32 == "skinny" else K.WGMMA_TILES[0])
 
 
 def _compiled_constant(source: str, name: str) -> int:
@@ -249,14 +254,15 @@ def _compiled_constant(source: str, name: str) -> int:
 
 
 def test_fold_and_cap_constants_match_the_source_and_their_bounds():
-    mma_src, skinny_src = "int32_mma.cuh", "int32_skinny.cuh"
+    mma_src, skinny_src, wgmma_src = "int32_mma.cuh", "skinny.cuh", "f32_wgmma.cuh"
     assert K.MMA_TILES == tuple(_compiled_constant(mma_src, x) for x in ("BM", "BN", "BK"))
     assert K.MMA_FOLD_K == _compiled_constant(mma_src, "FOLD_K")
     assert (K.SKINNY_MAX_M, K.SKINNY_MAX_K, K.SKINNY_MAX_TERMS, K.SKINNY_THREADS) == tuple(
         _compiled_constant(skinny_src, x)
         for x in ("SKINNY_MAX_M", "SKINNY_MAX_K", "SKINNY_MAX_TERMS", "SKINNY_THREADS")
     )
-    assert K.SIMT_TILES == tuple(_compiled_constant("modmatmul.cu", x) for x in ("BM", "BN", "BK"))
+    assert K.WGMMA_TILES == tuple(_compiled_constant(wgmma_src, x) for x in ("BM", "BN", "BK"))
+    assert K.WGMMA_FOLD_K == _compiled_constant(wgmma_src, "FOLD_K")
     # mma: the merged cross accumulator gains 2 * 255**2 per K step and
     # must stay below 2**31 (s32) between folds; ll also carries a residue
     assert K.MMA_FOLD_K * 2 * 255**2 < 2**31
@@ -265,11 +271,20 @@ def test_fold_and_cap_constants_match_the_source_and_their_bounds():
     # skinny: each of K + z terms adds (256c mod p) * bh + c * bl
     assert K.SKINNY_MAX_TERMS * 2 * (P - 1) * 255 < 2**32
     assert K.SKINNY_MAX_TERMS >= K.SKINNY_MAX_K + 2  # the protocol's z = 2 fits at any skinny K
+    # f32 skinny: each term adds at most 2 * 255**2 to each float
+    # accumulator, which must stay an exact integer below 2**24
+    assert K.SKINNY_MAX_TERMS * 2 * 255**2 < 2**24
+    # f32_wgmma: a set holds its residue (< p) plus one fold period of
+    # 2 * 255**2 per K below 2**24; the period is whole K tiles, an even
+    # count so the second consumer can fold half a period early
+    assert K.WGMMA_FOLD_K * 2 * 255**2 + (P - 1) < 2**24
+    assert (K.WGMMA_FOLD_K * 2) * 2 * 255**2 >= 2**24  # 128 is the largest power of two
+    assert K.WGMMA_FOLD_K % (2 * K.WGMMA_TILES[2]) == 0
 
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in K.CSRC.glob("*.cu*")}
-    assert {"modmatmul.cu", "common.cuh", "int32_mma.cuh", "int32_skinny.cuh"} <= names
+    assert {"modmatmul.cu", "common.cuh", "int32_mma.cuh", "f32_wgmma.cuh", "skinny.cuh"} <= names
     text = K.SOURCE.read_text()
     for name in names - {"modmatmul.cu"}:
         assert f'#include "{name}"' in text
