@@ -2,6 +2,7 @@
 """Build and drive the PyTorch/CUDA port of the coded-MPC engine on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--batch 4] [--reps 5]
+    python3 chip_smoke.py --variant-path f32|int32 [--src DIR] [--k 5120]
 
 Phases (each raises on failure; the exit code is then not 0):
 
@@ -32,12 +33,24 @@ Phases (each raises on failure; the exit code is then not 0):
 4. f32     — ``run_batched(backend="cuda")`` at the same full-width
              shapes, unfused and fused, Y exact against the float64
              oracle, with the launch counts of the f32 kernels;
+             a profiler breakdown of one warm run of each, and the peak
+             device memory of the path;
 5. timing  — each kernel at each launch site of its path: CUDA-event
              time, profiler device time, plain version, bound, library
              call, design; printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits with code 2 and prints no result.
+
+``--variant-path`` runs none of the phases above.  It times one kernel
+variant at each launch site of ``run_batched`` (at contraction depth
+``--k``; each output checked against its plain version) and
+``run_batched`` on that variant (Y checked against the float64 oracle),
+through the wrappers, plain versions and engine alone, and prints one
+JSON line.  ``--src`` names the ``src`` directory whose ``repro_torch``
+is imported (default: this checkout's), so one call can time two trees:
+unpack another commit with ``git archive`` into a gitignored directory
+and pass its ``src``.
 """
 from __future__ import annotations
 
@@ -53,7 +66,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 P = 65521
 SOURCES = {
@@ -192,6 +204,8 @@ def kernel_cases():
               for k in (16511, 16512, 16513, 33023, 33024, 33025, 2 * 16512 + 5, 2 * 33024 + 5)]
     cases += [((3, k), (k, 8), "maximal", 2) for k in (16512, 16516, 2 * 16512 + 8)]
     cases.append(((3, 70000), (70000, 5), "maximal", 3))
+    # the grids: N tiles past grid.y's 65535, M past it (f32_wgmma's A split)
+    cases += [((40, 6), (6, 10_000_000), "uniform", 2), ((70_000, 40), (40, 8), "uniform", 2)]
     return cases
 
 
@@ -275,7 +289,6 @@ def device_ms(torch, fn, reps: int) -> float:
     """Summed device time of ``reps`` calls of ``fn`` under torch.profiler
     over ``reps``: free of the wrapper's host cost, which a lone launch's
     CUDA-event time includes.  None if the profiler recorded none."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -284,12 +297,8 @@ def device_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            dev_us = getattr(ev, "self_device_time_total", None)
-            total += dev_us if dev_us is not None else getattr(ev, "self_cuda_time_total", 0.0)
-    return total / 1e3 / reps if total > 0 else None
+    total = sum(r[0] for r in profiled_ms(prof))
+    return total / reps if total > 0 else None
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -304,6 +313,32 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def run_batched_ms(torch, protocol, plan, a, b, *, backend, fused, seed, reps) -> float:
+    """Median CUDA-event ms of ``reps`` calls of run_batched."""
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        protocol.run_batched(plan, a, b, seed=seed, backend=backend, fused_masks=fused)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def main_operands(torch, planner, constructions, batch: int, k: int, seed: int):
+    """The plan of AGE s = t = z = 2 at a = [batch, k, 512], b = [batch, k,
+    4096], random operands from ``seed`` on the card, and their oracle Y."""
+    scheme = constructions.build_scheme("age", 2, 2, 2)
+    plan = planner.get_plan(scheme, planner.BlockShapes(k=k, ma=512, mb=4096, s=2, t=2))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    a = torch.randint(0, P, (batch, k, 512), generator=gen, device="cuda", dtype=torch.int32)
+    b = torch.randint(0, P, (batch, k, 4096), generator=gen, device="cuda", dtype=torch.int32)
+    return plan, a, b, oracle_y(torch, a, b)
 
 
 def drive(torch, K, protocol, plan, a, b, want, *, backend, fused, tag, seed):
@@ -344,19 +379,12 @@ def expect_launches(K, kernel, masked_kernel, by_kernel, fused: bool, tag: str) 
 
 
 def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict:
-    scheme = constructions.build_scheme("age", 2, 2, 2)
-    batch, k, ma, mb = args.batch, 5120, 512, 4096
-    plan = planner.get_plan(scheme, planner.BlockShapes(k=k, ma=ma, mb=mb, s=2, t=2))
-    log(f"[main] AGE s=t=z=2: n_total={plan.n_total} thr={plan.decode_threshold}; "
-        f"a [{batch}, {k}, {ma}] (X^T, 512 tokens x d_model 5120), "
-        f"b [{batch}, {k}, {mb}] (W_q, 5120 x 32*128)")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(args.seed)
-    a = torch.randint(0, P, (batch, k, ma), generator=gen, device="cuda", dtype=torch.int32)
-    b = torch.randint(0, P, (batch, k, mb), generator=gen, device="cuda", dtype=torch.int32)
-    want = oracle_y(torch, a, b)
-
+    batch, k = args.batch, 5120
+    plan, a, b, want = main_operands(torch, planner, constructions, batch, k, args.seed)
     torch.cuda.reset_peak_memory_stats()
+    log(f"[main] AGE s=t=z=2: n_total={plan.n_total} thr={plan.decode_threshold}; "
+        f"a [{batch}, {k}, 512] (X^T, 512 tokens x d_model 5120), "
+        f"b [{batch}, {k}, 4096] (W_q, 5120 x 32*128)")
     counts = {}
     for fused in (False, True):
         tag = "main fused" if fused else "main unfused"
@@ -365,28 +393,19 @@ def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict
         expect_launches(K, "modmatmul_int32", "modmatmul_int32_masked", MAIN_BY_KERNEL,
                         fused, tag)
     peak = torch.cuda.max_memory_allocated()
-
-    times = {}
-    for fused in (False, True):
-        ms = []
-        for _ in range(args.reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            protocol.run_batched(plan, a, b, seed=args.seed, fused_masks=fused)
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
-        times["fused" if fused else "unfused"] = statistics.median(ms)
+    times = {("fused" if fused else "unfused"): run_batched_ms(
+        torch, protocol, plan, a, b, backend="auto", fused=fused, seed=args.seed, reps=args.reps)
+        for fused in (False, True)}
     log(f"[main] run_batched median ms over {args.reps}: {times}; "
         f"peak allocated {peak / 2**30:.2f} GiB")
-    profile_breakdown(torch, protocol, plan, a, b, args.seed)
+    profile_breakdown(torch, protocol, plan, a, b, args.seed, backend="auto")
+    del a, b, want
 
     # the float API once, same shapes; exact against the quantized oracle
     gf = torch.Generator(device="cuda")
     gf.manual_seed(args.seed + 1)
-    af = torch.randn((batch, k, ma), generator=gf, device="cuda", dtype=torch.float64)
-    bf = torch.randn((batch, k, mb), generator=gf, device="cuda", dtype=torch.float64) * 0.02
+    af = torch.randn((batch, k, 512), generator=gf, device="cuda", dtype=torch.float64)
+    bf = torch.randn((batch, k, 4096), generator=gf, device="cuda", dtype=torch.float64) * 0.02
     K.reset_launch_counts()
     start = time.perf_counter()
     res = layers.secure_matmul_batched(af, bf, s=2, t=2, z=2, seed=args.seed)
@@ -408,67 +427,64 @@ def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict
 
 
 def phase_f32(torch, K, protocol, planner, constructions, args) -> dict:
-    scheme = constructions.build_scheme("age", 2, 2, 2)
-    batch, k, ma, mb = args.batch, 5120, 512, 4096
-    plan = planner.get_plan(scheme, planner.BlockShapes(k=k, ma=ma, mb=mb, s=2, t=2))
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(args.seed + 2)
-    a = torch.randint(0, P, (batch, k, ma), generator=gen, device="cuda", dtype=torch.int32)
-    b = torch.randint(0, P, (batch, k, mb), generator=gen, device="cuda", dtype=torch.int32)
-    want = oracle_y(torch, a, b)
+    batch = args.batch
+    plan, a, b, want = main_operands(torch, planner, constructions, batch, 5120, args.seed + 2)
+    torch.cuda.reset_peak_memory_stats()
     counts = {}
     for fused in (False, True):
         tag = "f32 fused" if fused else "f32 unfused"
         counts[fused] = drive(torch, K, protocol, plan, a, b, want,
                               backend="cuda", fused=fused, tag=tag, seed=args.seed)
         expect_launches(K, "modmatmul_f32", "modmatmul_f32_masked", F32_BY_KERNEL, fused, tag)
-    times = {}
-    for fused in (False, True):
-        ms = []
-        for _ in range(args.reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            protocol.run_batched(plan, a, b, seed=args.seed, backend="cuda", fused_masks=fused)
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
-        times["fused" if fused else "unfused"] = statistics.median(ms)
-    log(f"[f32] run_batched(backend='cuda') median ms over {args.reps}: {times}")
-    return {"plan": plan, "counts": counts, "batch": batch, "times": times}
+    # f32_wgmma's A planes (device scratch, 8 bytes per A element) are in it
+    peak = torch.cuda.max_memory_allocated()
+    times = {("fused" if fused else "unfused"): run_batched_ms(
+        torch, protocol, plan, a, b, backend="cuda", fused=fused, seed=args.seed, reps=args.reps)
+        for fused in (False, True)}
+    log(f"[f32] run_batched(backend='cuda') median ms over {args.reps}: {times}; "
+        f"peak allocated {peak / 2**30:.2f} GiB")
+    profile_breakdown(torch, protocol, plan, a, b, args.seed, backend="cuda")
+    return {"plan": plan, "counts": counts, "batch": batch, "times": times, "peak": peak}
 
 
-def profile_breakdown(torch, protocol, plan, a, b, seed: int, top: int = 12) -> None:
+def profiled_ms(prof) -> list:
+    """(self device ms, calls, name) of every device op a torch.profiler
+    run recorded, largest first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue  # a host op: its device time is its kernels' rows
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def profile_breakdown(torch, protocol, plan, a, b, seed: int, *, backend: str, top: int = 12) -> None:
     """One warm run_batched of each kind under torch.profiler: the top
     device ops (kernels, copies, fills) by self device time, and the
     device-idle share of the window (1 - summed device time / event-timed
     window; one stream, so they do not overlap).  The profiler's own host
     cost is inside the window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for fused in (False, True):
-        tag = "fused" if fused else "unfused"
-        protocol.run_batched(plan, a, b, seed=seed, fused_masks=fused)  # warm
+        tag = ("fused" if fused else "unfused") + ("" if backend == "auto" else f" {backend}")
+        protocol.run_batched(plan, a, b, seed=seed, backend=backend, fused_masks=fused)  # warm
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start.record()
-            protocol.run_batched(plan, a, b, seed=seed, fused_masks=fused)
+            protocol.run_batched(plan, a, b, seed=seed, backend=backend, fused_masks=fused)
             end.record()
             end.synchronize()
         window = start.elapsed_time(end)
-        rows = []
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue  # a host op: its device time is its kernels' rows
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, ev.count, ev.key))
-        rows.sort(reverse=True)
+        rows = profiled_ms(prof)
         busy = sum(r[0] for r in rows)
         if busy <= 0:
             log(f"[profile {tag}] window {window:.3f} ms; device time not measured "
@@ -481,6 +497,42 @@ def profile_breakdown(torch, protocol, plan, a, b, seed: int, top: int = 12) -> 
             "top": [{"op": k[:80], "self_device_ms": round(ms, 4), "calls": c}
                     for ms, c, k in rows[:top]],
         }))
+
+
+def phase_variant_path(torch, K, ref, protocol, planner, constructions, args) -> dict:
+    """``--variant-path``: one variant at each launch site of run_batched
+    and run_batched on it, through the wrappers, plain versions and engine
+    only (the repro_torch of ``--src`` may be another commit's, with other
+    compiled designs)."""
+    variant, batch, reps = args.variant_path, args.batch, args.reps
+    plan, a, b, want = main_operands(torch, planner, constructions, batch, args.k, args.seed)
+    z = plan.scheme.z
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 3)
+    result = {"src": args.src, "variant": variant, "k": args.k, "sites": {}}
+    for site, (sa, sb) in site_table(plan, batch).items():
+        x, y, v = (torch.randint(0, P, s, generator=gen, device="cuda", dtype=torch.int32)
+                   for s in (sa, sb, (sa[-2], z)))
+        forms = [("plain", lambda: K.modmatmul_cuda(x, y, P, variant),
+                  lambda: ref.PLAIN[variant](x, y, P))]
+        if site in FUSED_MASKED:
+            forms.append(("masked", lambda: K.modmatmul_masked_cuda(x, y, v, (7, 11), P, variant),
+                          lambda: ref.modmatmul_masked_plain(x, y, v, (7, 11), P, variant)))
+        for form, kern, plain in forms:
+            if not torch.equal(kern(), plain()):
+                raise AssertionError(f"{variant} {form} kernel != plain version at {site}")
+            result["sites"][f"{site} {form}"] = {
+                "ms": cuda_ms(torch, kern, reps), "device_ms": device_ms(torch, kern, reps)}
+        del x, y, v
+        torch.cuda.empty_cache()
+    backend = {"int32": "cuda_int32", "f32": "cuda"}[variant]
+    for fused in (False, True):
+        tag = "fused" if fused else "unfused"
+        drive(torch, K, protocol, plan, a, b, want, backend=backend, fused=fused,
+              tag=f"{variant} {tag}", seed=args.seed)
+        result[f"run_batched {tag}"] = run_batched_ms(
+            torch, protocol, plan, a, b, backend=backend, fused=fused, seed=args.seed, reps=reps)
+    return result
 
 
 # ----------------------------------------------------------------------
@@ -562,14 +614,15 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None if library_ms is None else round(library_ms, 4),
             }
-            if base == "f32_wgmma":  # two fp16 sets of depth 2K: 8 flop per MNK
-                entry["fp16_floor_ms"] = round(8 * B * M * Kd * N / FP16_TC_FLOPS * 1e3, 4)
             seen[key] = entry
             entries.append(entry)
+            # f32_wgmma's own floor: two fp16 sets of depth 2K, 8 flop per MNK
+            floor = (f"  fp16 floor {8 * B * M * Kd * N / FP16_TC_FLOPS * 1e3:.4f}"
+                     if base == "f32_wgmma" else "")
             log(f"[timing] {compiled:20s} {site:12s} {entry['shape']:44s} "
                 f"{ms:9.3f} ms  device {entry['device_ms']}  plain {plain_ms:9.3f}  "
                 f"bound {entry['bound_ms']:7.3f} "
-                f"({entry['bound_by']})  library {library_ms}")
+                f"({entry['bound_by']})  library {library_ms}{floor}")
             del a, b, v
     return entries
 
@@ -579,7 +632,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch is driven")
+    ap.add_argument("--variant-path", choices=("int32", "f32"),
+                    help="only time this variant's sites and run_batched on it")
+    ap.add_argument("--k", type=int, default=5120, help="--variant-path's contraction depth")
     args = ap.parse_args()
+    sys.path.insert(0, args.src)
 
     import torch
 
@@ -596,6 +655,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+    if args.variant_path:
+        result = phase_variant_path(torch, K, ref, protocol, planner, constructions, args)
+        print(json.dumps({**result, "device": smi}))
+        return 0
 
     t0 = time.perf_counter()
     phase_build(K)
@@ -613,7 +676,7 @@ def main() -> int:
             raise AssertionError(f"compiled kernel {name} was not launched on its path")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
-        f"peak {main_run['peak']} bytes")
+        f"peak {main_run['peak']} / {f32_run['peak']} bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

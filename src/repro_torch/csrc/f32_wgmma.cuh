@@ -65,8 +65,12 @@
 //   the 128-byte swizzle, which wgmma reads with no bank conflicts and
 //   the split writes with none (a warp's 16-byte stores cover each 8-row
 //   swizzle atom's eight chunk positions).
-// * Blocks are numbered M tile fastest (grid.x), so the M tiles that
-//   share a B panel run side by side and the second read of B hits L2.
+// * The grid is (N tiles, M tiles, batch): N tiles fastest, up to
+//   2**31 - 1 of them; M tiles up to 65535 (M < 8.4M).  The N tiles that
+//   share an A tile run side by side, and at the protocol's shapes (two
+//   M tiles) both readers of a B panel run in the same wave, so the
+//   second read of B hits L2.  No integer division picks the tile: its
+//   SASS would convert with I2F.
 #pragma once
 
 #include "common.cuh"
@@ -158,50 +162,53 @@ __device__ __forceinline__ void wgmma_f16(float (&d)[ACC], uint64_t da, uint64_t
 
 // A [batch, M, K] int32 -> its fp16 planes in device memory, in the
 // order the main kernel copies them: [batch][M][K tile][W1 row | W0 row],
-// zero past K.  One thread per row and 8-value K chunk; the grid is (K
-// chunks / 128, M, batch), so there is no integer division.
+// zero past K.  One thread per 8-value K chunk of a row; the grid is (K
+// chunks / 128, min(M, 65535), batch) and a block strides over the rows
+// by gridDim.y, so there is no integer division and no cap on M.
 template <bool VEC>
 __global__ void __launch_bounds__(128) split_a_planes(const Params P, unsigned char* planes,
                                                       int ntiles) {
   const int item = blockIdx.x * 128 + threadIdx.x;  // K tile * 4 + chunk
   if (item >= ntiles * 4) return;
-  const int m = blockIdx.y, bb = blockIdx.z, K = P.K;
+  const int bb = blockIdx.z, K = P.K;
   const int gk = 8 * item;
-  const int* src = P.a + (size_t)bb * (size_t)P.a_bs + (size_t)m * K + gk;
-  uint32_t x[8];
-  if constexpr (VEC) {  // K % 4 == 0: a 16-byte chunk is all in or all out
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int4 v = make_int4(0, 0, 0, 0);
-      if (gk + 4 * h < K) v = __ldg(reinterpret_cast<const int4*>(src) + h);
-      x[4 * h] = v.x;
-      x[4 * h + 1] = v.y;
-      x[4 * h + 2] = v.z;
-      x[4 * h + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = gk + e < K ? (uint32_t)__ldg(src + e) : 0u;
-  }
-  uint32_t ap[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) ap[e] = barrett(x[e] << 8, P.p, P.mu);  // 256a mod p
-  uint4 ah, al, aph, apl;
-  limbs_h2(x[0], x[1], al.x, ah.x);
-  limbs_h2(x[2], x[3], al.y, ah.y);
-  limbs_h2(x[4], x[5], al.z, ah.z);
-  limbs_h2(x[6], x[7], al.w, ah.w);
-  limbs_h2(ap[0], ap[1], apl.x, aph.x);
-  limbs_h2(ap[2], ap[3], apl.y, aph.y);
-  limbs_h2(ap[4], ap[5], apl.z, aph.z);
-  limbs_h2(ap[6], ap[7], apl.w, aph.w);
   const int kt = item >> 2, kc = item & 3;
-  uint4* dst = reinterpret_cast<uint4*>(
-      planes + (((size_t)bb * P.M + m) * ntiles + kt) * A_TILE_ROW_BYTES);
-  dst[kc] = aph;       // W1: [a'_hi | a_hi]
-  dst[4 + kc] = ah;
-  dst[8 + kc] = apl;   // W0: [a'_lo | a_lo]
-  dst[12 + kc] = al;
+  for (int m = blockIdx.y; m < P.M; m += gridDim.y) {
+    const int* src = P.a + (size_t)bb * (size_t)P.a_bs + (size_t)m * K + gk;
+    uint32_t x[8];
+    if constexpr (VEC) {  // K % 4 == 0: a 16-byte chunk is all in or all out
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int4 v = make_int4(0, 0, 0, 0);
+        if (gk + 4 * h < K) v = __ldg(reinterpret_cast<const int4*>(src) + h);
+        x[4 * h] = v.x;
+        x[4 * h + 1] = v.y;
+        x[4 * h + 2] = v.z;
+        x[4 * h + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = gk + e < K ? (uint32_t)__ldg(src + e) : 0u;
+    }
+    uint32_t ap[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ap[e] = barrett(x[e] << 8, P.p, P.mu);  // 256a mod p
+    uint4 ah, al, aph, apl;
+    limbs_h2(x[0], x[1], al.x, ah.x);
+    limbs_h2(x[2], x[3], al.y, ah.y);
+    limbs_h2(x[4], x[5], al.z, ah.z);
+    limbs_h2(x[6], x[7], al.w, ah.w);
+    limbs_h2(ap[0], ap[1], apl.x, aph.x);
+    limbs_h2(ap[2], ap[3], apl.y, aph.y);
+    limbs_h2(ap[4], ap[5], apl.z, aph.z);
+    limbs_h2(ap[6], ap[7], apl.w, aph.w);
+    uint4* dst = reinterpret_cast<uint4*>(
+        planes + (((size_t)bb * P.M + m) * ntiles + kt) * A_TILE_ROW_BYTES);
+    dst[kc] = aph;       // W1: [a'_hi | a_hi]
+    dst[4 + kc] = ah;
+    dst[8 + kc] = apl;   // W0: [a'_lo | a_lo]
+    dst[12 + kc] = al;
+  }
 }
 
 template <bool VEC, bool MASKED>
@@ -221,10 +228,10 @@ __global__ void __launch_bounds__(THREADS, 1) modmatmul_f32_wgmma(const Params P
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
-  // grid (M tiles, N tiles, batch): no integer division, whose SASS
+  // grid (N tiles, M tiles, batch): no integer division, whose SASS
   // would convert with I2F
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
   const int bb = blockIdx.z;
   const int M = P.M, N = P.N, K = P.K;
   const int ntiles = (K + BK - 1) / BK;
@@ -439,7 +446,7 @@ template <bool VEC, bool MASKED>
 cudaError_t launch_vec(const Params& P, int batch, unsigned char* a_split, cudaStream_t stream) {
   const int ntiles = (P.K + BK - 1) / BK;
   if (ntiles > 0) {
-    dim3 pgrid((ntiles * 4 + 127) / 128, P.M, P.a_bs ? batch : 1);
+    dim3 pgrid((ntiles * 4 + 127) / 128, P.M < 65535 ? P.M : 65535, P.a_bs ? batch : 1);
     split_a_planes<VEC><<<pgrid, 128, 0, stream>>>(P, a_split, ntiles);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -448,7 +455,7 @@ cudaError_t launch_vec(const Params& P, int batch, unsigned char* a_split, cudaS
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((P.M + BM - 1) / BM, (P.N + BN - 1) / BN, batch);
+  dim3 grid((P.N + BN - 1) / BN, (P.M + BM - 1) / BM, batch);
   kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(P, a_split);
   return cudaGetLastError();
 }

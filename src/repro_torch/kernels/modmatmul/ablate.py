@@ -52,6 +52,8 @@ VARIANTS = {
         ("skinny.cuh", _ACCUMULATE,
          '      if (k0 + kk < K) asm volatile("" ::"r"(x[kk][0] ^ x[kk][COLS - 1]));')
     ],
+    "skinny: f32 long finish only": [  # two mod_f per output at every T, not only past 64
+        ("skinny.cuh", "const bool short_sum = T <= SKINNY_F32_SHORT_TERMS;", "const bool short_sum = false;")],
     "f32_wgmma: staging only (no products)": [("f32_wgmma.cuh", _W1, ""), ("f32_wgmma.cuh", _W0, "")],
     "f32_wgmma: products only (no loads, no split)": [
         ("f32_wgmma.cuh", x, "") for x in (_F32_LOAD, _F32_SPLIT_B, _F32_LOAD_A, _F32_PREPASS)],

@@ -138,9 +138,8 @@ def design_tiles(design: str, m: int, k: int) -> Tuple[int, int, int]:
 def _grid_ok(design: str, batch: int, m: int, n: int) -> bool:
     bm, bn, _ = design_tiles(design, m, 1)
     col_blocks = -(-n // bn)
-    if design == "wgmma":  # grid (M tiles, N tiles, batch); A's split: (K chunks, M, batch)
-        return (-(-m // bm) <= _MAX_GRID_X and col_blocks <= _MAX_GRID_YZ
-                and m <= _MAX_GRID_YZ and batch <= _MAX_GRID_YZ)
+    if design == "wgmma":  # grid (N tiles, M tiles, batch); A's split strides over M
+        return col_blocks <= _MAX_GRID_X and -(-m // bm) <= _MAX_GRID_YZ and batch <= _MAX_GRID_YZ
     if design == "mma":
         col_blocks *= -(-m // bm)  # M tiles and N tiles share grid.x
     return col_blocks <= _MAX_GRID_X and batch <= _MAX_GRID_YZ

@@ -106,6 +106,18 @@ def test_f32_kernel_folds_at_every_period(cuda, k):
     assert bool((got == (k * (P - 1) ** 2) % P).all())
 
 
+@pytest.mark.parametrize("variant", ["int32", "f32"])
+@pytest.mark.parametrize("sa,sb", [((40, 6), (6, 10_000_000)), ((70_000, 40), (40, 8))])
+def test_tensor_core_designs_take_wide_and_tall_grids(cuda, variant, sa, sb):
+    # N tiles past grid.y's 65535, and M past it for f32_wgmma's A split
+    rng = np.random.default_rng(9)
+    a, b = (torch.as_tensor(_draw(rng, s, "uniform"), dtype=torch.int32, device=cuda) for s in (sa, sb))
+    K.reset_launch_counts()
+    got = K.modmatmul_cuda(a, b, P, variant)
+    assert K.LAUNCHES_BY_KERNEL["int32_mma" if variant == "int32" else "f32_wgmma"] == 1
+    assert torch.equal(got, ref.PLAIN[variant](a, b, P))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     a = torch.ones((4, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):

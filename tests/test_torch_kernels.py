@@ -244,6 +244,29 @@ def test_skinny_cap_edges(m, k, z, want):
     assert K.design_tiles(f32, m, k)[0] == (m if f32 == "skinny" else K.WGMMA_TILES[0])
 
 
+# (M, N, whether each design's grid takes it): N tiles are unbounded on
+# grid.x for every design; f32_wgmma's M tiles are on grid.y (65535) and
+# its A split strides over M; int32_mma's M x N tiles share grid.x.
+_WIDE = 65535 * 128 + 1  # one M tile past grid.y
+
+
+@pytest.mark.parametrize(
+    "m,n,mma_ok,wgmma_ok",
+    [
+        (40, 10_000_000, True, True), (70_000, 8, True, True),
+        (70_000, 10_000_000, True, True), (_WIDE, 8, True, False),
+        (_WIDE, 5_000_000, False, False),
+    ],
+)
+def test_grid_limits_of_the_tensor_core_designs(m, n, mma_ok, wgmma_ok):
+    assert K.choose_design("int32", False, 1, m, 40, n) == "mma"
+    assert K.choose_design("f32", False, 1, m, 40, n) == "wgmma"
+    assert K._grid_ok("mma", 1, m, n) is mma_ok
+    assert K._grid_ok("wgmma", 1, m, n) is wgmma_ok
+    assert K._grid_ok("wgmma", 65535, m, n) is wgmma_ok
+    assert not K._grid_ok("wgmma", 65536, m, n)
+
+
 def _compiled_constant(source: str, name: str) -> int:
     import re
 
