@@ -35,8 +35,26 @@ Phases (each raises on failure; the exit code is then not 0):
              oracle, with the launch counts of the f32 kernels;
              a profiler breakdown of one warm run of each, and the peak
              device memory of the path;
-5. timing  — each kernel at each launch site of its path: CUDA-event
-             time, profiler device time, plain version, bound, library
+5. edge    — the edge runtime at the same width on a pool of 20
+             workers (AGE s = t = z = 2, 3 spares; a straggler trace with
+             worker 0 dropped and worker 1 corrupt): ``run_batch_over_pool``
+             in detect and correct mode on ``auto`` and on
+             ``backend="cuda"``, ``run_over_pool`` on product 0,
+             ``run_pipeline_over_pool`` (3 replays) and
+             ``run_adaptive_over_pool`` (AGE or PolyDot, 3 replays); every Y
+             exact against the float64 oracle, the corrupt worker rejected
+             or corrected, the dropped one outside the Phase-2 set, the
+             launches per compiled kernel and their shapes asserted; the
+             wall time of each call (median of ``--reps``, of at most 3
+             for the pipeline and the auto-planner) split into the
+             device data plane and the host (blinding draw, the copy of
+             the Phase-2 evaluations, event loop and decode), the peak
+             device memory; and the same replays at k = 256, ma = 32,
+             mb = 64 equal, Y and every metric, on the card and on the CPU;
+6. timing  — each kernel at each launch site of its paths (the
+             ``run_batched`` sites and the edge runtime's): CUDA-event
+             time, device time of launches queued back to back (behind a
+             busy-wait kernel), plain version, bound, library
              call, design; printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
@@ -285,20 +303,30 @@ def geometry(sa, sb):
     return (batch, sa[-2], sa[-1], sb[-1])
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Summed device time of ``reps`` calls of ``fn`` under torch.profiler
-    over ``reps``: free of the wrapper's host cost, which a lone launch's
-    CUDA-event time includes.  None if the profiler recorded none."""
-    from torch.profiler import ProfilerActivity, profile
+# cycles of the busy-wait kernel that device_ms queues its launches
+# behind: ~25 ms at 1.98 GHz, far longer than the host takes to enqueue
+# a few wrapper calls
+QUEUE_CYCLES = 50_000_000
 
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls enqueued behind a
+    busy-wait kernel (``torch.cuda._sleep``), so that the card runs them
+    back to back, free of the wrapper's host cost that a lone launch's
+    CUDA-event time includes; CUDA events around the ``reps`` calls,
+    after one warm-up.  (torch.profiler loses device activities on the
+    H100 machine as a process runs on: PERF.md section 7.)"""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(r[0] for r in profiled_ms(prof))
-    return total / reps if total > 0 else None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -538,6 +566,75 @@ def phase_variant_path(torch, K, ref, protocol, planner, constructions, args) ->
 # ----------------------------------------------------------------------
 # phase 5: per-site timing and the kernels line
 # ----------------------------------------------------------------------
+def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_launch, args) -> dict:
+    """One launch site of ``variant`` on random inputs of its shape: the
+    kernel against its plain version, then its times, bound and library
+    call; logs a ``[timing]`` line and returns the ``kernels`` entry."""
+    shape = geometry(sa, sb)
+    design = K.choose_design(variant, masked, *shape, z if masked else 0)
+    compiled = f"{variant}_{design}" + ("_masked" if masked else "")
+    a = torch.randint(0, P, sa, generator=gen, device="cuda", dtype=torch.int32)
+    b = torch.randint(0, P, sb, generator=gen, device="cuda", dtype=torch.int32)
+    v = torch.randint(0, P, (sa[-2], z), generator=gen, device="cuda", dtype=torch.int32)
+    wkey = (7, 11)
+    if masked:
+        kern = lambda: K.modmatmul_masked_cuda(a, b, v, wkey, P, variant)  # noqa: E731
+        plain = lambda: ref.modmatmul_masked_plain(a, b, v, wkey, P, variant)  # noqa: E731
+    else:
+        kern = lambda: K.modmatmul_cuda(a, b, P, variant)  # noqa: E731
+        plain = lambda: ref.PLAIN[variant](a, b, P)  # noqa: E731
+    got, exp = kern(), plain()
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
+    if err:
+        raise AssertionError(f"{name} at {site}: max abs error {err} against plain")
+    del got, exp
+    reps = args.reps
+    ms = cuda_ms(torch, kern, reps)
+    dev_ms = device_ms(torch, kern, reps)
+    plain_ms = cuda_ms(torch, plain, reps)
+    library_ms = None
+    if not masked:  # float64 matmul + remainder: exact while K*(p-1)**2 < 2**53
+        a64, b64 = a.double(), b.double()
+        library_ms = cuda_ms(torch, lambda: torch.remainder(torch.matmul(a64, b64), P), reps)
+        del a64, b64
+    B, M, Kd, N = shape
+    nbytes = 4 * (a.numel() + b.numel() + B * M * N + (v.numel() if masked else 0))
+    tc_ops = 8 * B * M * (Kd + (z if masked else 0)) * N
+    alu_ops = (B * z * N * THREEFRY_OPS + B * M * N * z * MASK_TERM_OPS) if masked else 0
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = (tc_ops / INT8_TC_OPS + alu_ops / INT32_OPS) * 1e3
+    base = f"{variant}_{design}"
+    entry = {
+        "name": name,
+        "kernel": compiled,
+        "design": design,
+        "site": site,
+        "shape": f"{list(sa)}@{list(sb)}" + (f"+v{[sa[-2], z]}" if masked else ""),
+        "route": "cuda",
+        "source": SOURCES[base],
+        "replaces": TPU_KERNELS[name],
+        "launches": n_launch,
+        "max_abs_err": err,
+        "ms": round(ms, 4),
+        "device_ms": round(dev_ms, 4),
+        "plain_ms": round(plain_ms, 4),
+        "bound_ms": round(max(t_bytes, t_ops), 4),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None if library_ms is None else round(library_ms, 4),
+    }
+    # f32_wgmma's own floor: two fp16 sets of depth 2K, 8 flop per MNK
+    floor = (f"  fp16 floor {8 * B * M * Kd * N / FP16_TC_FLOPS * 1e3:.4f}"
+             if base == "f32_wgmma" else "")
+    log(f"[timing] {compiled:20s} {site:12s} {entry['shape']:44s} "
+        f"{ms:9.3f} ms  device {entry['device_ms']}  plain {plain_ms:9.3f}  "
+        f"bound {entry['bound_ms']:7.3f} "
+        f"({entry['bound_by']})  library {library_ms}{floor}")
+    del a, b, v
+    torch.cuda.empty_cache()
+    return entry
+
+
 def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
     plan, batch = run["plan"], run["batch"]
     sites = site_table(plan, batch)
@@ -562,68 +659,368 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
             if key in seen:  # the same site in the other run: add its launches
                 seen[key]["launches"] += n_launch
                 continue
-            a = torch.randint(0, P, sa, generator=gen, device="cuda", dtype=torch.int32)
-            b = torch.randint(0, P, sb, generator=gen, device="cuda", dtype=torch.int32)
-            v = torch.randint(0, P, (sa[-2], z), generator=gen, device="cuda", dtype=torch.int32)
-            wkey = (7, 11)
-            if masked:
-                kern = lambda: K.modmatmul_masked_cuda(a, b, v, wkey, P, variant)  # noqa: E731
-                plain = lambda: ref.modmatmul_masked_plain(a, b, v, wkey, P, variant)  # noqa: E731
-            else:
-                kern = lambda: K.modmatmul_cuda(a, b, P, variant)  # noqa: E731
-                plain = lambda: ref.PLAIN[variant](a, b, P)  # noqa: E731
-            got, exp = kern(), plain()
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
-            if err:
-                raise AssertionError(f"{name} at {site}: max abs error {err} against plain")
-            del got, exp
-            reps = args.reps
-            ms = cuda_ms(torch, kern, reps)
-            dev_ms = device_ms(torch, kern, reps)
-            plain_ms = cuda_ms(torch, plain, reps)
-            library_ms = None
-            if not masked:  # float64 matmul + remainder: exact while K*(p-1)**2 < 2**53
-                a64, b64 = a.double(), b.double()
-                library_ms = cuda_ms(
-                    torch, lambda: torch.remainder(torch.matmul(a64, b64), P), reps
-                )
-                del a64, b64
-            B, M, Kd, N = shape
-            nbytes = 4 * (a.numel() + b.numel() + B * M * N + (v.numel() if masked else 0))
-            tc_ops = 8 * B * M * (Kd + (z if masked else 0)) * N
-            alu_ops = (B * z * N * THREEFRY_OPS + B * M * N * z * MASK_TERM_OPS) if masked else 0
-            t_bytes = nbytes / HBM_BPS * 1e3
-            t_ops = (tc_ops / INT8_TC_OPS + alu_ops / INT32_OPS) * 1e3
-            base = f"{variant}_{design}"
-            entry = {
-                "name": name,
-                "kernel": compiled,
-                "design": design,
-                "site": site,
-                "shape": f"{list(sa)}@{list(sb)}" + (f"+v{[sa[-2], z]}" if masked else ""),
-                "route": "cuda",
-                "source": SOURCES[base],
-                "replaces": TPU_KERNELS[name],
-                "launches": n_launch,
-                "max_abs_err": err,
-                "ms": round(ms, 4),
-                "device_ms": None if dev_ms is None else round(dev_ms, 4),
-                "plain_ms": round(plain_ms, 4),
-                "bound_ms": round(max(t_bytes, t_ops), 4),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None if library_ms is None else round(library_ms, 4),
-            }
+            entry = measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z,
+                                 n_launch, args)
             seen[key] = entry
             entries.append(entry)
-            # f32_wgmma's own floor: two fp16 sets of depth 2K, 8 flop per MNK
-            floor = (f"  fp16 floor {8 * B * M * Kd * N / FP16_TC_FLOPS * 1e3:.4f}"
-                     if base == "f32_wgmma" else "")
-            log(f"[timing] {compiled:20s} {site:12s} {entry['shape']:44s} "
-                f"{ms:9.3f} ms  device {entry['device_ms']}  plain {plain_ms:9.3f}  "
-                f"bound {entry['bound_ms']:7.3f} "
-                f"({entry['bound_by']})  library {library_ms}{floor}")
-            del a, b, v
+    return entries
+
+
+# ----------------------------------------------------------------------
+# phase 5: the edge runtime
+# ----------------------------------------------------------------------
+def edge_sites(plan, batch: int) -> dict:
+    """Launch sites of the edge runtime: ``run_over_pool`` (E) and
+    ``run_batch_over_pool`` (B), name -> ((a shape), (b shape))."""
+    sch, sh = plan.scheme, plan.shapes
+    n, nw, z = plan.n_total, plan.n_workers, sch.z
+    na, nb = len(sch.fa_powers), len(sch.fb_powers)
+    bra, bca = sh.blk_a
+    brb, bcb = sh.blk_b
+    blk = sh.blk_y[0] * sh.blk_y[1]
+    return {
+        "E1 share A": ((n, na), (na, bra * bca)),
+        "E1 share B": ((n, nb), (nb, brb * bcb)),
+        "E2 multiply": ((n, bra, bca), (n, bca, bcb)),
+        "E2 mix": ((n, nw), (nw, blk)),
+        "E2 noise": ((n, z), (z, blk)),
+        "B1 share A": ((n, na), (batch, na, bra * bca)),
+        "B1 share B": ((n, nb), (batch, nb, brb * bcb)),
+        "B2 multiply": ((batch * n, bra, bca), (batch * n, bca, bcb)),
+        "B2 mix": ((n, nw), (nw, batch * blk)),
+        "B2 noise": ((n, z), (z, batch * blk)),
+    }
+
+
+def expected_shapes(K, sites: dict, names, variant: str) -> dict:
+    """{compiled kernel: {(B, M, K, N): launches}} of the given sites, by
+    the design ``choose_design`` sends each to."""
+    want: dict = {}
+    for site in names:
+        shape = geometry(*sites[site])
+        compiled = f"{variant}_{K.choose_design(variant, False, *shape)}"
+        want.setdefault(compiled, {})
+        want[compiled][shape] = want[compiled].get(shape, 0) + 1
+    return want
+
+
+def launched_shapes(K) -> dict:
+    return {name: dict(c) for name, c in K.LAUNCH_SHAPES_BY_KERNEL.items() if c}
+
+
+def same_result(x, y, what: str) -> None:
+    """Exact equality of two runtime results, field by field."""
+    import dataclasses
+
+    import numpy as np
+
+    if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"{what} differs")
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            same_result(getattr(x, f.name), getattr(y, f.name), f"{what}.{f.name}")
+    elif isinstance(x, (list, tuple)):
+        if len(x) != len(y):
+            raise AssertionError(f"{what} differs in length")
+        for i, (xi, yi) in enumerate(zip(x, y)):
+            same_result(xi, yi, f"{what}[{i}]")
+    elif isinstance(x, float) and x != x:
+        if y == y:
+            raise AssertionError(f"{what}: {y} where nan")
+    elif x != y:
+        raise AssertionError(f"{what}: {x} != {y}")
+
+
+def edge_trace(runtime, plan, seed: int):
+    """``sample_trace(20, ShiftedExponential(1, 1), FaultSpec(straggler_frac
+    = 0.2), s)`` with worker 0 dropped and worker 1 corrupt, at the first
+    s >= ``seed`` where worker 1's response leg (exchange + uplink) is
+    among the decode threshold's fastest: a corrupt response that the
+    decode never reads would test nothing."""
+    import numpy as np
+
+    for s in range(seed, seed + 1000):
+        trace = runtime.sample_trace(
+            plan.n_total, runtime.ShiftedExponential(1.0, 1.0),
+            runtime.FaultSpec(straggler_frac=0.2), seed=s,
+        ).with_faults(dropout_ids=[0], corrupt_ids=[1])
+        leg = trace.d2d_delay + trace.uplink_delay
+        order = [int(w) for w in np.argsort(leg, kind="stable") if not trace.dropout[w]]
+        if 1 in order[: plan.decode_threshold]:
+            return trace, s
+    raise AssertionError("no trace seed puts worker 1 among the fastest responders")
+
+
+def edge_traces(runtime, plan, seed: int, depth: int = 3):
+    """``depth`` traces of ``edge_trace`` at increasing seeds, and the seeds."""
+    traces, seeds = [], []
+    for _ in range(depth):
+        trace, seed = edge_trace(runtime, plan, seed)
+        traces.append(trace)
+        seeds.append(seed)
+        seed += 1
+    return traces, seeds
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Median wall ms of ``reps`` calls of ``fn``, the card synchronized
+    before and after each."""
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+# the port's data-plane functions an instrumented call wraps
+SPLIT_TARGETS = (("protocol", "share_batched"), ("protocol", "share_a"),
+                 ("protocol", "share_b"), ("protocol", "polyeval"),
+                 ("protocol", "worker_multiply"), ("protocol", "degree_reduce"),
+                 ("protocol", "_blinding_sum"), ("scheduler", "_to_host"))
+
+
+def split_call(torch, modules: dict, fn) -> dict:
+    """One call of ``fn`` with the port's data-plane functions wrapped:
+    each wrapper synchronizes the card and records CUDA events around the
+    function.  The call's wall time splits into the device data plane
+    (the share evaluation, worker multiply and degree reduction, less the
+    host blinding draw inside the latter) and the host: the per-product
+    share preparation (block stacking, the secret draws and their upload,
+    around the share evaluation), the blinding draw, the copy of the
+    Phase-2 evaluations to the host, and the rest (event loop and
+    decode).  Each wrapper's two synchronizations are inside the wall."""
+    parts: dict = {}
+    saved = []
+
+    def wrap(key, f):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = f(*a, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            rec = parts.setdefault(key, {"event_ms": 0.0, "wall_ms": 0.0, "calls": 0})
+            rec["event_ms"] += e0.elapsed_time(e1)
+            rec["wall_ms"] += (time.perf_counter() - t0) * 1e3
+            rec["calls"] += 1
+            return out
+        return timed
+
+    try:
+        for mod, attr in SPLIT_TARGETS:
+            f = getattr(modules[mod], attr)
+            saved.append((modules[mod], attr, f))
+            setattr(modules[mod], attr, wrap(attr, f))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+
+    def ev(name, key="event_ms"):
+        return parts.get(name, {}).get(key, 0.0)
+
+    draw = ev("_blinding_sum", "wall_ms")
+    # the batched share's polyeval is inside share_batched; the per-product
+    # one is the device part of share_a / share_b
+    per_product = "share_a" in parts
+    prep = ev("share_a") + ev("share_b") - ev("polyeval") if per_product else 0.0
+    device = (ev("share_batched") + (ev("polyeval") if per_product else 0.0)
+              + ev("worker_multiply") + ev("degree_reduce") - draw)
+    d2h = ev("_to_host", "wall_ms")
+    host = wall - device
+    return {
+        "wall_ms": round(wall, 3),
+        "device_data_plane_ms": round(device, 3),
+        "host_ms": round(host, 3),
+        "host_share_prep_ms": round(prep, 3),
+        "host_blinding_draw_ms": round(draw, 3),
+        "host_d2h_copy_ms": round(d2h, 3),
+        "host_event_loop_and_decode_ms": round(host - prep - draw - d2h, 3),
+        "parts": {k: {kk: round(vv, 3) for kk, vv in v.items()} for k, v in parts.items()},
+    }
+
+
+EDGE_PRODUCT_SITES = ("E1 share A", "E1 share B", "E2 multiply", "E2 mix", "E2 noise")
+EDGE_BATCH_SITES = ("B1 share A", "B1 share B", "B2 multiply", "B2 mix", "B2 noise")
+
+
+def phase_edge(torch, K, protocol, planner, constructions, runtime, scheduler, args) -> dict:
+    import numpy as np
+
+    batch, k = args.batch, 5120
+    scheme = constructions.build_scheme("age", 2, 2, 2)
+    plan = planner.get_plan(scheme, planner.BlockShapes(k=k, ma=512, mb=4096, s=2, t=2), n_spare=3)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 4)
+    a = torch.randint(0, P, (batch, k, 512), generator=gen, device="cuda", dtype=torch.int32)
+    b = torch.randint(0, P, (batch, k, 4096), generator=gen, device="cuda", dtype=torch.int32)
+    want = oracle_y(torch, a, b).cpu().numpy()
+    traces, seeds = edge_traces(runtime, plan, args.seed)
+    trace = traces[0]
+    sites = edge_sites(plan, batch)
+    log(f"[edge] AGE s=t=z=2, 3 spares: n_workers={plan.n_workers} n_total={plan.n_total} "
+        f"thr={plan.decode_threshold}; a [{batch}, {k}, 512], b [{batch}, {k}, 4096]; "
+        f"trace seeds {seeds}: worker 0 dropped, worker 1 corrupt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    modules = {"protocol": protocol, "scheduler": scheduler}
+    reps = args.reps
+    times, counts = {}, {}
+
+    def check(run, y_want, mode, tag):
+        if not np.array_equal(run.y, y_want):
+            bad = int((run.y != y_want).sum()) if run.y.shape == y_want.shape else -1
+            raise AssertionError(f"[{tag}] Y differs from the float64 oracle in {bad} entries")
+        m = run.metrics
+        bad_ids = (m.rejected_ids if mode == "detect" else m.corrected_workers).tolist()
+        if 1 not in bad_ids or 0 in m.phase2_ids.tolist():
+            raise AssertionError(f"[{tag}] corrupt worker 1 not caught ({bad_ids}) or dropped "
+                                 f"worker 0 in the Phase-2 set {m.phase2_ids.tolist()}")
+        log(f"[{tag}] Y exact; phase2 {m.phase2_ids.tolist()} responders "
+            f"{m.responder_ids.tolist()} rejected {m.rejected_ids.tolist()} corrected "
+            f"{m.corrected_workers.tolist()} completion {m.completion_time}")
+
+    for backend, variant in (("auto", "int32"), ("cuda", "f32")):
+        for mode in ("detect", "correct"):
+            tag = f"edge batch {backend} {mode}"
+            kw = dict(seed=args.seed, decode_mode=mode, verify_extras=1, error_budget=1,
+                      backend=backend)
+            call = lambda: runtime.run_batch_over_pool(plan, a, b, trace, **kw)  # noqa: E731
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            run = call()
+            torch.cuda.synchronize()
+            got = launched_shapes(K)
+            expect = expected_shapes(K, sites, EDGE_BATCH_SITES, variant)
+            if got != expect:
+                raise AssertionError(f"[{tag}] launches {got}, expected {expect}")
+            counts[(backend, mode)] = got
+            check(run, want, mode, tag)
+            times[tag] = {"median_wall_ms": round(wall_ms(torch, call, reps), 3),
+                          "split": split_call(torch, modules, call)}
+            log(f"[edge time] {tag}: " + json.dumps(times[tag]))
+
+    tag = "edge product 0"
+    call = lambda: runtime.run_over_pool(plan, a[0], b[0], trace, seed=args.seed,  # noqa: E731
+                                         verify_extras=1)
+    K.reset_launch_counts()
+    run = call()
+    torch.cuda.synchronize()
+    got = launched_shapes(K)
+    expect = expected_shapes(K, sites, EDGE_PRODUCT_SITES, "int32")
+    if got != expect:
+        raise AssertionError(f"[{tag}] launches {got}, expected {expect}")
+    counts["product"] = got
+    check(run, want[0], "detect", tag)
+    times[tag] = {"median_wall_ms": round(wall_ms(torch, call, reps), 3),
+                  "split": split_call(torch, modules, call)}
+    log(f"[edge time] {tag}: " + json.dumps(times[tag]))
+
+    stack_a, stack_b = a.expand(3, *a.shape), b.expand(3, *b.shape)
+    for tag, call in (
+        ("edge pipeline", lambda: runtime.run_pipeline_over_pool(
+            plan, stack_a, stack_b, traces, seed=args.seed, verify_extras=1)),
+        ("edge adaptive", lambda: runtime.run_adaptive_over_pool(
+            runtime.AutoPlanner([constructions.PlanConfig("age", 2, 2, 2),
+                                 constructions.PlanConfig("polydot", 2, 2, 2)]),
+            stack_a, stack_b, traces, seed=args.seed, verify_extras=1)),
+    ):
+        start = time.perf_counter()
+        run = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        if run.y.shape != (3,) + want.shape or not all(np.array_equal(y, want) for y in run.y):
+            raise AssertionError(f"[{tag}] Y differs from the float64 oracle")
+        for m in run.replay_metrics:
+            if 1 not in m.rejected_ids.tolist() or 0 in m.phase2_ids.tolist():
+                raise AssertionError(f"[{tag}] a replay missed the corrupt or dropped worker")
+        extra = ""
+        if tag == "edge adaptive":
+            extra = f"; decisions {[d.config.label() + ':' + d.reason for d in run.decisions]}"
+        # 3 runs at most: one replay sequence takes tens of seconds
+        walls = [secs * 1e3] + [wall_ms(torch, call, 1) for _ in range(min(reps, 3) - 1)]
+        times[tag] = {"median_wall_ms": round(statistics.median(walls), 3), "runs": len(walls),
+                      "split": split_call(torch, modules, call)}
+        log(f"[{tag}] 3 replays of batch {batch}: every Y exact, worker 1 rejected and "
+            f"worker 0 outside Phase 2 in each{extra}")
+        log(f"[edge time] {tag}: " + json.dumps(times[tag]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[edge] peak allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    del a, b, stack_a, stack_b
+    torch.cuda.empty_cache()
+    phase_edge_reduced(torch, K, planner, constructions, runtime, args)
+    return {"plan": plan, "batch": batch, "counts": counts, "times": times, "peak": peak}
+
+
+def phase_edge_reduced(torch, K, planner, constructions, runtime, args) -> None:
+    """The edge calls at k = 256, ma = 32, mb = 64 on the card and on the
+    CPU: the same Y and equal metrics, field by field."""
+    import numpy as np
+
+    plan = planner.get_plan(constructions.build_scheme("age", 2, 2, 2),
+                            planner.BlockShapes(k=256, ma=32, mb=64, s=2, t=2), n_spare=3)
+    rng = np.random.default_rng(args.seed)
+    a = rng.integers(0, P, (3, args.batch, 256, 32))
+    b = rng.integers(0, P, (3, args.batch, 256, 64))
+    traces, _ = edge_traces(runtime, plan, args.seed)
+
+    def planner_():
+        return runtime.AutoPlanner([constructions.PlanConfig("age", 2, 2, 2),
+                                    constructions.PlanConfig("polydot", 2, 2, 2)])
+
+    calls = {f"batch {backend} {mode}": (
+        lambda dev, backend=backend, mode=mode: runtime.run_batch_over_pool(
+            plan, a[0], b[0], traces[0], seed=args.seed, decode_mode=mode, verify_extras=1,
+            error_budget=1, backend=backend, device=dev))
+        for backend in ("auto", "cuda") for mode in ("detect", "correct")}
+    calls["product 0"] = lambda dev: runtime.run_over_pool(
+        plan, a[0, 0], b[0, 0], traces[0], seed=args.seed, verify_extras=1, device=dev)
+    calls["pipeline"] = lambda dev: runtime.run_pipeline_over_pool(
+        plan, a, b, traces, seed=args.seed, verify_extras=1, device=dev)
+    # the planner object itself differs; its decisions are compared
+    calls["adaptive"] = lambda dev: (lambda run: (run.y, run.replay_metrics, run.decisions))(
+        runtime.run_adaptive_over_pool(planner_(), a, b, traces, seed=args.seed,
+                                       verify_extras=1, device=dev))
+    for name, call in calls.items():
+        card, cpu = call(None), call("cpu")
+        same_result(cpu, card, f"[edge reduced] {name}")
+    log(f"[edge reduced] k=256 ma=32 mb=64: {len(calls)} calls equal on the card and the CPU "
+        f"(Y and every metric): {sorted(calls)}")
+
+
+def edge_entries(torch, K, ref, edge: dict, args) -> list:
+    """The edge runtime's launch sites for the ``kernels`` line, with their
+    launches per ``run_over_pool`` / ``run_batch_over_pool`` call."""
+    plan, batch = edge["plan"], edge["batch"]
+    sites = edge_sites(plan, batch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 5)
+    entries = []
+    for variant, names, counts in (
+        ("int32", EDGE_PRODUCT_SITES, edge["counts"]["product"]),
+        ("int32", EDGE_BATCH_SITES, edge["counts"][("auto", "detect")]),
+        ("f32", EDGE_BATCH_SITES, edge["counts"][("cuda", "detect")]),
+    ):
+        for site in names:
+            sa, sb = sites[site]
+            shape = geometry(sa, sb)
+            compiled = f"{variant}_{K.choose_design(variant, False, *shape)}"
+            n_launch = counts.get(compiled, {}).get(shape, 0)
+            if n_launch < 1:
+                raise AssertionError(f"{compiled} never launched at edge site {site} {shape}")
+            entries.append(measure_site(torch, K, ref, gen, f"modmatmul_{variant}", variant,
+                                        False, site, sa, sb, plan.scheme.z, n_launch, args))
     return entries
 
 
@@ -646,9 +1043,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
 
+    from repro_torch import runtime
     from repro_torch.core import constructions, layers, planner, protocol
     from repro_torch.kernels.modmatmul import kernel as K
     from repro_torch.kernels.modmatmul import ref
+    from repro_torch.runtime import scheduler
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -665,18 +1064,21 @@ def main() -> int:
     phase_kernels(torch, K, ref, args.seed)
     main_run = phase_main(torch, K, protocol, layers, planner, constructions, args)
     f32_run = phase_f32(torch, K, protocol, planner, constructions, args)
+    edge_run = phase_edge(torch, K, protocol, planner, constructions, runtime, scheduler, args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
     entries += site_entries(torch, K, ref, f32_run, "f32", args)
+    entries += edge_entries(torch, K, ref, edge_run, args)
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"kernel {name} was not launched on its path")
     on_path = {n for by in (MAIN_BY_KERNEL, F32_BY_KERNEL) for d in by.values() for n in d}
+    on_path |= {n for counts in edge_run["counts"].values() for n in counts}
     for name in on_path:
         if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"compiled kernel {name} was not launched on its path")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
-        f"peak {main_run['peak']} / {f32_run['peak']} bytes")
+        f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

@@ -23,8 +23,8 @@ Two facts of PyTorch shape the device half:
   8-bit limbs' products, so TF32 is switched off below.
 
 Keys: a PRNG key is a pair of 32-bit words ``(k0, k1)`` held as Python
-ints.  :func:`prng_key` and :func:`split` reproduce
-``jax.random.PRNGKey``/``jax.random.split`` (threefry, partitionable
+ints.  :func:`prng_key`, :func:`split` and :func:`fold_in` reproduce
+``jax.random.PRNGKey``/``split``/``fold_in`` (threefry, partitionable
 mode), which makes the fused-mask shares bit-identical to the JAX
 package's for the same seed.
 """
@@ -499,6 +499,16 @@ def split(key: Key, n: int = 2) -> List[Key]:
     ctr = torch.arange(n, dtype=torch.int64)
     x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(ctr), ctr)
     return [(int(w0), int(w1)) for w0, w1 in zip(x0.tolist(), x1.tolist())]
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)`` under threefry: the output word
+    pair of threefry2x32(key, (0, data mod 2**32))."""
+    x0, x1 = threefry2x32(
+        key[0], key[1], torch.zeros(1, dtype=torch.int64),
+        torch.tensor([int(data) & U32], dtype=torch.int64),
+    )
+    return (int(x0[0]), int(x1[0]))
 
 
 def field_mask(key: Key, shape: tuple, p: int = P_DEFAULT, device="cpu") -> torch.Tensor:

@@ -1,7 +1,19 @@
-"""The batched three-phase CMPC protocol engine, on torch tensors.
+"""The three-phase CMPC protocol engine, on torch tensors.
 
-The counterpart of the JAX package's batched engine
-(``repro.core.protocol.run_batched`` and its helpers):
+The counterpart of the JAX package's ``repro.core.protocol``, with two
+of its execution paths:
+
+* ``run``          — per-product reference: host-side block stacking,
+                     numpy-rng secrets and blinding, the share
+                     evaluation, worker multiply and degree reduction
+                     on the device, and the Phase-3 decode in numpy
+                     (``share_a``/``share_b``, ``worker_multiply``,
+                     ``degree_reduce``, ``reconstruct*``); the edge
+                     runtime's per-product data plane,
+* ``run_batched``  — the batched engine below, every phase on the
+                     device.
+
+The three phases:
 
 Phase 1  sources evaluate F_A(alpha_n), F_B(alpha_n) for every
          provisioned worker (``share_batched``),
@@ -20,7 +32,10 @@ Randomness.  Keys are derived exactly as the JAX package derives them
 blinding terms — the counter-based threefry stream generated inside the
 kernels — are bit-identical to the reference's.  Without fused masks the
 draws come from a ``torch.Generator`` seeded from the key; they differ
-from ``jax.random.randint``'s, and Y does not depend on them.
+from ``jax.random.randint``'s, and Y does not depend on them.  The
+reference path draws from the caller's ``numpy.random.Generator`` in
+the reference's order, dtypes and shapes, so its shares, blinding and
+every decision taken from them are the reference's exactly.
 """
 from __future__ import annotations
 
@@ -211,11 +226,18 @@ class DevicePlan:
     sb_pos: torch.Tensor  # [z]
     ids2: torch.Tensor  # [n_workers] default Phase-2 worker set
     ids3: torch.Tensor  # [thr] default Phase-3 responder set
+    # host copies of the scatter maps for the numpy share path of ``run``
+    a_pos_h: np.ndarray = None
+    sa_pos_h: np.ndarray = None
+    b_pos_h: np.ndarray = None
+    sb_pos_h: np.ndarray = None
 
 
 # fields holding field elements (int32) vs index maps (int64)
 CONST_FIELDS = ("va", "vb", "mix_t", "vnoise", "decode_w")
 INDEX_FIELDS = ("a_pos", "sa_pos", "b_pos", "sb_pos", "ids2", "ids3")
+# index maps the numpy share path also keeps on the host (``<name>_h``)
+HOST_FIELDS = ("a_pos", "sa_pos", "b_pos", "sb_pos")
 
 
 def _const(x: np.ndarray, device) -> torch.Tensor:
@@ -264,6 +286,7 @@ def device_plan_from_arrays(arrays: dict, device) -> DevicePlan:
     """Upload DevicePlan fields given as numpy arrays to ``device``."""
     fields = {k: _const(arrays[k], device) for k in CONST_FIELDS}
     fields.update({k: _index(arrays[k], device) for k in INDEX_FIELDS})
+    fields.update({f"{k}_h": np.array(arrays[k], np.int64) for k in HOST_FIELDS})
     return DevicePlan(**fields)
 
 
@@ -487,3 +510,237 @@ def run_batched(
             p=p, t=t, backend=backend,
         )
     return y.to(torch.int64), batch_trace(plan, int(batch))
+
+
+# ----------------------------------------------------------------------
+# the per-product reference path: numpy rng on the host, products on the
+# device, the Phase-3 decode in numpy
+# ----------------------------------------------------------------------
+def _host(x) -> np.ndarray:
+    """A worker-stacked array on the host (a device tensor is copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def _host_rows(x, ids: np.ndarray) -> np.ndarray:
+    """Rows ``ids`` of a worker-stacked array, on the host; a device
+    tensor is indexed on its device, so only those rows are copied."""
+    if isinstance(x, torch.Tensor):
+        return x.index_select(0, _index(ids, x.device)).cpu().numpy()
+    return np.asarray(x)[ids]
+
+
+def _share_stack(
+    blocks: np.ndarray,
+    n_coeff: int,
+    data_pos: np.ndarray,
+    secret_pos: np.ndarray,
+    p: int,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """Scatter data blocks + fresh secrets into an int32 coeff stack."""
+    stack = np.zeros((n_coeff,) + blocks.shape[1:], np.int32)
+    stack[data_pos] = blocks
+    stack[secret_pos] = rng.integers(
+        0, p, size=(secret_pos.size,) + blocks.shape[1:], dtype=np.int32
+    )
+    return stack
+
+
+def share_a(plan: CMPCPlan, a, rng: np.random.Generator, device=None) -> torch.Tensor:
+    """Source 1: F_A(alpha_n) for every provisioned worker.
+
+    The coefficient stack (data blocks and the z secrets from ``rng``)
+    is built on the host and evaluated on ``device`` (default: the GPU).
+    Returns int32 [n_total, ma/t, k/s].
+    """
+    device = resolve_device(device)
+    s, t = plan.scheme.s, plan.scheme.t
+    br, bc = plan.shapes.blk_a
+    dp = device_plan(plan, device)
+    with TRACER.span("protocol.phase1.share_a"):
+        at = np.ascontiguousarray(_host(a).astype(np.int64).T)  # [ma, k]
+        blocks = (
+            at.reshape(t, br, s, bc).transpose(0, 2, 1, 3).reshape(t * s, br, bc)
+        ).astype(np.int32)
+        stack = _share_stack(
+            blocks, len(plan.scheme.fa_powers), dp.a_pos_h, dp.sa_pos_h,
+            plan.field.p, rng,
+        )
+        return polyeval(dp.va, torch.from_numpy(stack).to(device), p=plan.field.p)
+
+
+def share_b(plan: CMPCPlan, b, rng: np.random.Generator, device=None) -> torch.Tensor:
+    """Source 2: F_B(alpha_n), int32 [n_total, k/s, mb/t] on ``device``."""
+    device = resolve_device(device)
+    s, t = plan.scheme.s, plan.scheme.t
+    br, bc = plan.shapes.blk_b
+    dp = device_plan(plan, device)
+    with TRACER.span("protocol.phase1.share_b"):
+        bm = _host(b).astype(np.int64)
+        blocks = (
+            bm.reshape(s, br, t, bc).transpose(0, 2, 1, 3).reshape(s * t, br, bc)
+        ).astype(np.int32)
+        stack = _share_stack(
+            blocks, len(plan.scheme.fb_powers), dp.b_pos_h, dp.sb_pos_h,
+            plan.field.p, rng,
+        )
+        return polyeval(dp.vb, torch.from_numpy(stack).to(device), p=plan.field.p)
+
+
+def worker_multiply(
+    plan: CMPCPlan, fa: torch.Tensor, fb: torch.Tensor, backend: str = "auto"
+) -> torch.Tensor:
+    """H(alpha_n) = F_A(alpha_n) @ F_B(alpha_n), batched over workers."""
+    with TRACER.span("protocol.phase2.worker_multiply"):
+        return mod_matmul(fa, fb, p=plan.field.p, backend=backend)
+
+
+def _blinding_sum(plan: CMPCPlan, rng: np.random.Generator, n: int, blk: tuple) -> np.ndarray:
+    """The n Phase-2 workers' z blinding matrices each, drawn on the
+    host from ``rng``, summed over workers: int64 [z, *blk] in [0, p)."""
+    r = plan.field.random(rng, (n, plan.scheme.z) + tuple(blk))
+    return np.sum(r, axis=0) % plan.field.p
+
+
+def degree_reduce(
+    plan: CMPCPlan,
+    h: torch.Tensor,
+    rng: np.random.Generator,
+    worker_ids: Optional[Sequence[int]] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Dense (single-host) simulation of the Phase-2 exchange.
+
+    Every worker n forms G_n(x) (eq. 19) and evaluates it at every other
+    worker's alpha; the receivers sum into I(alpha_{n'}) (eq. 20).  Here
+    that is two modular matmuls on ``h``'s device:
+
+      I[n'] = sum_n mix[n, n'] * H[n]  +  sum_w (sum_n R_w^(n)) vnoise[n', w]
+
+    The per-worker blinding draws R_w^(n) come from ``rng`` on the host.
+    ``worker_ids`` selects which n_workers (of n_total provisioned)
+    serve Phase 2 — straggler mitigation; default = the primary set.
+    Returns int32 I evaluations for *all* provisioned workers
+    [n_total, ...].
+    """
+    p = plan.field.p
+    n = plan.n_workers
+    device = h.device
+    dp = device_plan(plan, device)
+    with TRACER.span("protocol.phase2.degree_reduce"):
+        ids, mix_t = _phase2_selection(plan, worker_ids, device)
+        blk = tuple(h.shape[-2:])
+        h_flat = h.index_select(0, _index(ids, device)).reshape(n, -1)
+        i_flat = mod_matmul(mix_t, h_flat, p=p, backend=backend)  # [n_total, blk]
+        # Workers' blinding terms R_w^{(n)}: each of the n Phase-2
+        # workers contributes z random matrices; only their sum enters
+        # I(x).
+        r_sum = _blinding_sum(plan, rng, n, blk)
+        r_dev = torch.from_numpy(r_sum.reshape(plan.scheme.z, -1).astype(np.int32)).to(device)
+        noise_flat = mod_matmul(dp.vnoise, r_dev, p=p, backend=backend)
+        return mod_add(i_flat, noise_flat, p).reshape((plan.n_total,) + blk)
+
+
+def assemble_y(plan: CMPCPlan, coeffs: np.ndarray) -> np.ndarray:
+    """Lay the first t^2 coefficients of I(x) out as Y (eq. 21).
+
+    coeffs: [>= t^2, blk_flat]; coefficient g = i + t*l is output block
+    (row i, col l).
+    """
+    t = plan.scheme.t
+    br, bc = plan.shapes.blk_y
+    blocks = np.asarray(coeffs)[: t * t].reshape(t, t, br, bc)  # [l, i, ., .]
+    return blocks.transpose(1, 2, 0, 3).reshape(plan.shapes.ma, plan.shapes.mb)
+
+
+def reconstruct(
+    plan: CMPCPlan,
+    i_evals,
+    worker_ids: Optional[Sequence[int]] = None,
+) -> np.ndarray:
+    """Interpolate I(x) from t^2 + z responses and assemble Y, on the host.
+
+    ``worker_ids`` is the responder subset (any ``decode_threshold``
+    indices into the provisioned pool); the default is the primary
+    prefix, whose decode matrix is precomputed on the plan.
+    """
+    thr = plan.decode_threshold
+    with TRACER.span("protocol.phase3.reconstruct"):
+        ids, w = _decode_selection(plan, worker_ids)
+        sel = _host_rows(i_evals, ids).reshape(thr, -1)
+        coeffs = plan.field.matmul(w, sel)  # [thr, blk_flat]
+        return assemble_y(plan, coeffs)
+
+
+def reconstruct_corrected(
+    plan: CMPCPlan,
+    i_evals,
+    worker_ids: Sequence[int],
+    e: int,
+    rng: Optional[np.random.Generator] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Byzantine-tolerant reconstruction: decode Y from ``thr + 2e``
+    responses of which up to ``e`` may be arbitrarily corrupted
+    (Berlekamp-Welch, :mod:`repro_torch.core.bw_decode`).  Returns
+    ``(y, corrected_ids)``; raises ``BWDecodeError`` past the budget.
+    """
+    from .bw_decode import bw_decode_evals  # deferred: keeps import light
+
+    evals = _host(i_evals)
+    coeffs, corrected = bw_decode_evals(
+        plan, evals.reshape(evals.shape[0], -1), np.asarray(worker_ids), e,
+        rng=rng,
+    )
+    return assemble_y(plan, coeffs), corrected
+
+
+def reconstruct_coded_only(
+    plan: CMPCPlan, h, worker_ids: Optional[Sequence[int]] = None
+) -> np.ndarray:
+    """Coded-computation decode (no Phase 2): interpolate H(x) directly.
+
+    Used for validating decodability of the underlying AGE/PolyDot codes
+    (Theorem 6); the master learns garbage coefficients, so this mode
+    does NOT provide master-side privacy.
+    """
+    n = plan.n_workers
+    ids = np.arange(n) if worker_ids is None else np.asarray(worker_ids)
+    if ids.size != n:
+        raise ValueError(f"coded decode needs exactly {n} evaluations")
+    v = plan.field.vandermonde(plan.alphas[ids], plan.scheme.h_powers)
+    vinv = plan.field.inv_matrix(v)
+    sel = _host_rows(h, ids).reshape(n, -1)
+    coeffs = plan.field.matmul(vinv, sel)
+    t = plan.scheme.t
+    br, bc = plan.shapes.blk_y
+    y = np.zeros((plan.shapes.ma, plan.shapes.mb), np.int64)
+    for i in range(t):
+        for l in range(t):
+            blkc = coeffs[plan.important_idx[i, l]].reshape(br, bc)
+            y[i * br : (i + 1) * br, l * bc : (l + 1) * bc] = blkc
+    return y
+
+
+def run(
+    plan: CMPCPlan,
+    a,
+    b,
+    seed: int = 0,
+    phase2_ids: Optional[Sequence[int]] = None,
+    phase3_ids: Optional[Sequence[int]] = None,
+    device=None,
+) -> Tuple[np.ndarray, Trace]:
+    """Full protocol for one product: returns (Y = A^T B mod p as a host
+    int64 array, communication trace).  Shares, worker multiply and
+    degree reduction run on ``device`` (default: the GPU)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    with TRACER.span("protocol.run"):
+        fa = share_a(plan, a, rng, device=device)
+        fb = share_b(plan, b, rng, device=device)
+        h = worker_multiply(plan, fa, fb)
+        i_evals = degree_reduce(plan, h, rng, worker_ids=phase2_ids)
+        y = reconstruct(plan, i_evals, worker_ids=phase3_ids)
+    return y, batch_trace(plan, 1)

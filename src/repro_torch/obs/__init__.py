@@ -1,4 +1,5 @@
-"""Observability of the port: the span tracer and the metrics registry.
+"""Observability of the port: the span tracer, the metrics registry and
+the Chrome/Perfetto and JSONL exporters.
 
 ``repro_torch.obs`` is imported *by* ``repro_torch.core`` and the
 kernels, so nothing here may import them back — the registry's default
@@ -20,4 +21,11 @@ from .metrics import (  # noqa: F401
     MetricsRegistry,
     get_registry,
     snapshot,
+)
+from .export import (  # noqa: F401
+    to_chrome,
+    to_jsonl,
+    validate_chrome,
+    write_chrome,
+    write_jsonl,
 )

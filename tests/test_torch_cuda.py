@@ -1,14 +1,18 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the batched engine through the kernels against the same engine on the CPU.
+the batched engine and the edge runtime through the kernels against the
+same entry points on the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports torch, numpy and the port only, so it runs on a machine without
 JAX:  ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import runtime
 from repro_torch.core import constructions, gf, planner, protocol
 from repro_torch.kernels.modmatmul import kernel as K
 from repro_torch.kernels.modmatmul import ops, ref
@@ -169,3 +173,90 @@ def test_run_batched_reaches_the_tensor_core_kernel(cuda, fused):
     expect = ({"int32_mma": 1, "int32_skinny": 1, "int32_skinny_masked": 3} if fused
               else {"int32_mma": 1, "int32_skinny": 5})
     assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == expect
+
+
+# ----------------------------------------------------------------------
+# the edge runtime at a reduced width (k = 256, ma = 32, mb = 64)
+# ----------------------------------------------------------------------
+def _same(x, y, what):
+    """Exact equality of runtime results: arrays, dataclasses, floats."""
+    if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+        np.testing.assert_array_equal(np.asarray(y), np.asarray(x), err_msg=what)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            _same(getattr(x, f.name), getattr(y, f.name), f"{what}.{f.name}")
+    elif isinstance(x, float) and np.isnan(x):
+        assert np.isnan(y), what
+    else:
+        assert x == y, (what, x, y)
+
+
+def _edge_setup(depth=1):
+    plan = planner.get_plan(
+        constructions.build_scheme("age", 2, 2, 2),
+        planner.BlockShapes(k=256, ma=32, mb=64, s=2, t=2), n_spare=3,
+    )
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, P, (depth, 4, 256, 32))
+    b = rng.integers(0, P, (depth, 4, 256, 64))
+    traces = [
+        runtime.sample_trace(
+            plan.n_total, runtime.ShiftedExponential(1.0, 1.0),
+            runtime.FaultSpec(straggler_frac=0.2), seed=7 + k,
+        ).with_faults(dropout_ids=[2 + k], corrupt_ids=[1])
+        for k in range(depth)
+    ]
+    want = np.einsum("rbki,rbkj->rbij", a.astype(object), b.astype(object)) % P
+    return plan, a, b, traces, want.astype(np.int64)
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+@pytest.mark.parametrize("mode", ["detect", "correct"])
+def test_edge_replays_on_the_card_equal_the_cpu_run(cuda, backend, mode):
+    plan, a, b, traces, want = _edge_setup()
+    kw = dict(seed=3, decode_mode=mode, verify_extras=1, error_budget=1, backend=backend)
+    cpu = runtime.run_batch_over_pool(plan, a[0], b[0], traces[0], device="cpu", **kw)
+    K.reset_launch_counts()
+    card = runtime.run_batch_over_pool(plan, a[0], b[0], traces[0], **kw)
+    variant = "int32" if backend == "auto" else "f32"
+    deep = "int32_mma" if backend == "auto" else "f32_wgmma"
+    assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == {
+        deep: 1, f"{variant}_skinny": 4}
+    np.testing.assert_array_equal(card.y, want[0])
+    np.testing.assert_array_equal(card.y, cpu.y)
+    _same(cpu.metrics, card.metrics, "batched replay")
+    bad = card.metrics.rejected_ids if mode == "detect" else card.metrics.corrected_workers
+    assert 1 in bad.tolist() and 2 not in card.metrics.phase2_ids.tolist()
+
+
+def test_per_product_pipeline_and_planner_on_the_card_equal_the_cpu_run(cuda):
+    plan, a, b, traces, want = _edge_setup(depth=3)
+    cpu = runtime.run_over_pool(plan, a[0, 0], b[0, 0], traces[0], seed=5, device="cpu")
+    K.reset_launch_counts()
+    card = runtime.run_over_pool(plan, a[0, 0], b[0, 0], traces[0], seed=5)
+    # share A, share B, the worker-stacked multiply, mix and noise
+    assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == {
+        "int32_mma": 1, "int32_skinny": 4}
+    np.testing.assert_array_equal(card.y, want[0, 0])
+    np.testing.assert_array_equal(card.y, cpu.y)
+    _same(cpu.metrics, card.metrics, "per-product replay")
+    # per-product shares come from the numpy rng: equal on the card and the CPU
+    fa_card = protocol.share_a(plan, a[0, 0], np.random.default_rng(1))
+    fa_cpu = protocol.share_a(plan, a[0, 0], np.random.default_rng(1), device="cpu")
+    assert torch.equal(fa_card.cpu(), fa_cpu)
+
+    cpu = runtime.run_pipeline_over_pool(plan, a, b, traces, seed=2, device="cpu")
+    card = runtime.run_pipeline_over_pool(plan, a, b, traces, seed=2)
+    np.testing.assert_array_equal(card.y, want)
+    np.testing.assert_array_equal(card.y, cpu.y)
+    _same(cpu.metrics, card.metrics, "pipeline")
+
+    def cands():
+        return [constructions.PlanConfig("age", 2, 2, 2), constructions.PlanConfig("polydot", 2, 2, 2)]
+
+    cpu = runtime.run_adaptive_over_pool(runtime.AutoPlanner(cands()), a, b, traces, device="cpu")
+    card = runtime.run_adaptive_over_pool(runtime.AutoPlanner(cands()), a, b, traces)
+    np.testing.assert_array_equal(card.y, want)
+    assert [d.config.label() for d in card.decisions] == [d.config.label() for d in cpu.decisions]
+    for mc, mg in zip(cpu.replay_metrics, card.replay_metrics):
+        _same(mc, mg, "adaptive replay")

@@ -189,6 +189,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             importlib.import_module(mod.name)
         import chip_smoke  # noqa: F401
+        import repro_torch.core.bw_decode, repro_torch.obs.export  # noqa: F401
+        from repro_torch import runtime
         from repro_torch.core import constructions, planner, protocol
         plan = planner.get_plan(
             constructions.build_scheme("age", 2, 2, 2),
@@ -201,6 +203,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         for fused in (False, True):
             y, _ = protocol.run_batched(plan, a, b, fused_masks=fused, device="cpu")
             assert np.array_equal(y.numpy(), want.astype(np.int64))
+        trace = runtime.sample_trace(plan.n_total, runtime.HeavyTail(1.0, 0.5, 1.5), seed=1)
+        trace = trace.with_faults(corrupt_ids=[0])
+        for mode in ("detect", "correct"):
+            run = runtime.run_batch_over_pool(plan, a, b, trace, decode_mode=mode, device="cpu")
+            assert np.array_equal(run.y, want.astype(np.int64))
+            run = runtime.run_over_pool(plan, a[0], b[0], trace, decode_mode=mode, device="cpu")
+            assert np.array_equal(run.y, want[0].astype(np.int64))
         loaded = [m for m in sys.modules if sys.modules[m] is not None
                   and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
         assert not loaded, loaded
