@@ -45,17 +45,53 @@ Phases (each raises on failure; the exit code is then not 0):
              exact against the float64 oracle, the corrupt worker rejected
              or corrected, the dropped one outside the Phase-2 set, the
              launches per compiled kernel and their shapes asserted; the
-             wall time of each call (median of ``--reps``, of at most 3
-             for the pipeline and the auto-planner) split into the
+             wall time of each call (median of ``--reps``; one run for
+             the pipeline and the auto-planner) split into the
              device data plane and the host (blinding draw, the copy of
              the Phase-2 evaluations, event loop and decode), the peak
              device memory; and the same replays at k = 256, ma = 32,
              mb = 64 equal, Y and every metric, on the card and on the CPU;
-6. timing  — each kernel at each launch site of its paths (the
-             ``run_batched`` sites and the edge runtime's): CUDA-event
-             time, device time of launches queued back to back (behind a
-             busy-wait kernel), plain version, bound, library
-             call, design; printed as one JSON line.
+6. serve   — ``ServingEngine`` at the same width: W_q [5120, 4096] and
+             16 requests of one 512-token chunk [512, 5120] (unit
+             normals from ``--seed``), Poisson arrivals at 0.6 per
+             simulated second, AGE s = t = z = 2 on a pool of 21 with
+             ``sample_trace(21, ShiftedExponential(0.1, 0.5), seed=9000+i,
+             net_scale=0.3)``, SLO 30, ``pipe_depth=2``, ``max_batch=4``,
+             hybrid decode; ``continuous`` and ``boundary`` on ``auto``
+             and ``continuous`` on ``backend="cuda"``: every request done,
+             every y equal to a float64 oracle on the card, no responder
+             of these fault-free traces rejected or corrected and the
+             hybrid decode never escalated, the launches
+             per replay per compiled kernel, the wall of each ``run()``
+             split into device data plane and host as ``[edge time]``
+             splits it, the peak device memory; the escalation scenario
+             (a corrupt fastest worker: detect, then BW correction); and
+             the stream at k = 256 (also over a shrinking elastic pool)
+             equal on the card and on the CPU;
+7. crt     — ``secure_matmul_crt`` (p = 65521 * 65519, z = 2) on float
+             [4, 5120, 512] and [4, 5120, 4096] on ``auto`` and
+             ``backend="cuda"``, fused and unfused: y and the combined
+             integers of ``run_batched_crt`` on the same plans exact
+             against a float64 oracle on the card, the launches twice
+             ``run_batched``'s, the wall per call and the share of it
+             that ``crt_combine`` takes on these residues alone; one
+             ``mod_matmul_crt`` of
+             [512, 5120] @ [5120, 4096];
+8. fuzz    — ``fuzz.run_fuzz`` (96 cases from ``--seed``) through the
+             ``cuda``, ``cuda_int32`` and ``crt`` engines on the card:
+             zero mismatches against the arbitrary-precision oracle;
+9. timing  — each kernel at each launch site of its paths (the
+             ``run_batched`` sites, the edge runtime's and a serving
+             replay's at n_total 21 and one request): exact against the
+             plain version, CUDA-event time, device time of launches
+             queued back to back (behind a busy-wait kernel), plain
+             version, bound, library call, design; printed as one JSON
+             line.  Every other shape the serving runs launched (a
+             replay of several requests) is held exact against the plain
+             version too, and a serving launch at no site's shape fails.
+             ``secure_matmul_crt``'s residues launch at the main path's
+             sites; ``mod_matmul_crt``'s one product is held whole
+             against the oracle.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits with code 2 and prints no result.
@@ -73,6 +109,7 @@ and pass its ``src``.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -566,13 +603,10 @@ def phase_variant_path(torch, K, ref, protocol, planner, constructions, args) ->
 # ----------------------------------------------------------------------
 # phase 5: per-site timing and the kernels line
 # ----------------------------------------------------------------------
-def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_launch, args) -> dict:
-    """One launch site of ``variant`` on random inputs of its shape: the
-    kernel against its plain version, then its times, bound and library
-    call; logs a ``[timing]`` line and returns the ``kernels`` entry."""
-    shape = geometry(sa, sb)
-    design = K.choose_design(variant, masked, *shape, z if masked else 0)
-    compiled = f"{variant}_{design}" + ("_masked" if masked else "")
+def check_site(torch, K, ref, gen, what, variant, masked, sa, sb, z):
+    """Random inputs of one launch site's shape through the kernel and its
+    plain version; raises unless they agree exactly.  Returns the
+    operands, the two calls and the error (0)."""
     a = torch.randint(0, P, sa, generator=gen, device="cuda", dtype=torch.int32)
     b = torch.randint(0, P, sb, generator=gen, device="cuda", dtype=torch.int32)
     v = torch.randint(0, P, (sa[-2], z), generator=gen, device="cuda", dtype=torch.int32)
@@ -587,8 +621,19 @@ def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_l
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
     if err:
-        raise AssertionError(f"{name} at {site}: max abs error {err} against plain")
-    del got, exp
+        raise AssertionError(f"{what}: max abs error {err} against plain")
+    return a, b, v, kern, plain, err
+
+
+def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_launch, args) -> dict:
+    """One launch site of ``variant`` on random inputs of its shape: the
+    kernel against its plain version, then its times, bound and library
+    call; logs a ``[timing]`` line and returns the ``kernels`` entry."""
+    shape = geometry(sa, sb)
+    design = K.choose_design(variant, masked, *shape, z if masked else 0)
+    compiled = f"{variant}_{design}" + ("_masked" if masked else "")
+    a, b, v, kern, plain, err = check_site(torch, K, ref, gen, f"{name} at {site}", variant,
+                                           masked, sa, sb, z)
     reps = args.reps
     ms = cuda_ms(torch, kern, reps)
     dev_ms = device_ms(torch, kern, reps)
@@ -948,8 +993,9 @@ def phase_edge(torch, K, protocol, planner, constructions, runtime, scheduler, a
         extra = ""
         if tag == "edge adaptive":
             extra = f"; decisions {[d.config.label() + ':' + d.reason for d in run.decisions]}"
-        # 3 runs at most: one replay sequence takes tens of seconds
-        walls = [secs * 1e3] + [wall_ms(torch, call, 1) for _ in range(min(reps, 3) - 1)]
+        # one timed run (the checked one): a replay sequence takes tens of
+        # seconds, and the script's later phases need the time
+        walls = [secs * 1e3]
         times[tag] = {"median_wall_ms": round(statistics.median(walls), 3), "runs": len(walls),
                       "split": split_call(torch, modules, call)}
         log(f"[{tag}] 3 replays of batch {batch}: every Y exact, worker 1 rejected and "
@@ -1024,6 +1070,373 @@ def edge_entries(torch, K, ref, edge: dict, args) -> list:
     return entries
 
 
+# ----------------------------------------------------------------------
+# phase 6: the serving tier
+# ----------------------------------------------------------------------
+SERVE_REQUESTS = 16
+SERVE_RATE = 0.6  # Poisson arrivals, requests per simulated second
+SERVE_MAX_BATCH = 4
+# (k, rows, out) of the serving and CRT phases: d_model 5120, a 512-token
+# chunk, W_q's 32 heads x 128
+WIDTH = (5120, 512, 4096)
+
+
+def serve_stream(np, runtime, constructions, seed: int, k: int, rows: int, out: int):
+    """The [serve] configuration: AGE s = t = z = 2 on a pool of 21
+    (n_workers + 4, as benchmarks/serve_load.py provisions), traces
+    ``sample_trace(21, ShiftedExponential(0.1, 0.5), seed=9000 + i,
+    net_scale=0.3)``, w [k, out] and 16 requests x [rows, k] of unit
+    normals from ``seed``, arriving Poisson at 0.6 per simulated second."""
+    cfg = constructions.PlanConfig("age", 2, 2, 2)
+    pool = cfg.n_workers + 4
+    traces = [runtime.sample_trace(pool, runtime.ShiftedExponential(0.1, 0.5),
+                                   seed=9000 + i, net_scale=0.3)
+              for i in range(SERVE_REQUESTS)]
+    rng = np.random.default_rng(seed + 6)
+    w = rng.normal(size=(k, out))
+    xs = [rng.normal(size=(rows, k)) for _ in range(SERVE_REQUESTS)]
+    arrivals = np.cumsum(rng.exponential(1 / SERVE_RATE, SERVE_REQUESTS))
+    return cfg, traces, w, xs, arrivals
+
+
+def serve_oracle(torch, np, layers, gf, w, x, cache: dict):
+    """The engine's answer for one request, computed on the card: the
+    request's scale (``choose_scales``), ``encode`` on the host, the
+    product in float64 on the card (exact: every partial sum is below
+    k*(p-1)**2 < 2**53), ``% p``, ``decode``."""
+    field = gf.Field(P)
+    k = w.shape[0]
+    s = layers.choose_scales(k, float(np.abs(x).max() + 1e-9), float(np.abs(w).max() + 1e-9), P)
+    if s not in cache:
+        cache[s] = torch.as_tensor(field.encode(w, s), device="cuda").double()
+    aq = torch.as_tensor(field.encode(x, s), device="cuda").double()
+    yq = torch.remainder(torch.matmul(aq, cache[s]).to(torch.int64), P).cpu().numpy()
+    return field.decode(yq, s * s), s
+
+
+def request_record(r) -> tuple:
+    """A served or shed request's outcome, nan as a string (equal to itself)."""
+    return tuple("nan" if isinstance(v, float) and v != v else v for v in (
+        r.rid, r.state, r.shed_reason, r.arrival, r.deadline, r.launch, r.completion, r.replay))
+
+
+def phase_serve(torch, K, serve, runtime, constructions, layers, gf, protocol, scheduler,
+                args) -> dict:
+    import numpy as np
+
+    k, rows, out = WIDTH
+    cfg, traces, w, xs, arrivals = serve_stream(np, runtime, constructions, args.seed, k, rows, out)
+    log(f"[serve] AGE s=t=z=2 (n_workers {cfg.n_workers}) on a pool of {traces[0].n}; "
+        f"w [{k}, {out}] (W_q, 5120 x 32*128); {SERVE_REQUESTS} requests x [{rows}, {k}] "
+        f"arriving Poisson at {SERVE_RATE}/s; SLO 30, pipe_depth 2, max_batch 4, hybrid decode")
+    cache, want, scales = {}, [], set()
+    for x in xs:
+        y, s = serve_oracle(torch, np, layers, gf, w, x, cache)
+        want.append(y)
+        scales.add(s)
+    nonzero = float(np.mean(gf.Field(P).encode(w, min(scales)) != 0))
+    log(f"[serve] request scales {sorted(scales)}: encoded W {nonzero:.4f} other than zero; "
+        f"max |oracle y| {max(float(np.abs(y).max()) for y in want):.1f}")
+    del cache
+    modules = {"protocol": protocol, "scheduler": scheduler}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results = {}
+    for mode, backend in (("continuous", "auto"), ("boundary", "auto"), ("continuous", "cuda")):
+        tag = f"serve {mode} {backend}"
+        eng = serve.ServingEngine(w, traces, cfg, seed=args.seed, mode=mode, pipe_depth=2,
+                                  max_batch=SERVE_MAX_BATCH, slo=30.0, decode_mode="hybrid",
+                                  backend=backend)
+        for x, t in zip(xs, arrivals):
+            eng.submit(x, float(t))
+        held = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        box = {}
+        split = split_call(torch, modules, lambda: box.setdefault("report", eng.run()))
+        rep = box["report"]
+        by_kernel = {n: c for n, c in K.LAUNCHES_BY_KERNEL.items() if c}
+        shapes = launched_shapes(K)
+        variant = "int32" if backend == "auto" else "f32"
+        deep = "int32_mma" if backend == "auto" else "f32_wgmma"
+        if by_kernel != {deep: rep.replays, f"{variant}_skinny": 4 * rep.replays}:
+            raise AssertionError(f"[{tag}] launches {by_kernel} over {rep.replays} replays")
+        for r, y in zip(rep.requests, want):
+            if r.state != "done" or not np.array_equal(r.y, y):
+                raise AssertionError(f"[{tag}] request {r.rid} {r.state}: y differs from the "
+                                     "card oracle")
+        if eng.device != protocol.resolve_device() or eng._session.device != eng.device:
+            raise AssertionError(f"[{tag}] the engine or its session is off the card")
+        # no worker of these traces is faulty: a response the decode
+        # rejected or corrected would be a wrong kernel result on its rows
+        flagged = [(i, o.n_rejected, o.n_corrected) for i, o in enumerate(eng._obs)
+                   if o.n_rejected or o.n_corrected]
+        if flagged or eng._session.hybrid_state.escalated:
+            raise AssertionError(f"[{tag}] fault-free stream: (replay, rejected, corrected) "
+                                 f"{flagged}, escalated {eng._session.hybrid_state.escalated}")
+        summary = rep.summary()
+        sizes = collections.Counter(r.replay for r in rep.requests)
+        batches = dict(sorted(collections.Counter(sizes.values()).items()))
+        log(f"[{tag}] every request done, every y exact; no responder rejected or corrected in "
+            f"{len(eng._obs)} replays, hybrid decode never escalated; replays by batch size "
+            f"{batches}; " + json.dumps(summary))
+        log(f"[{tag}] launches per replay {{{deep}: 1, {variant}_skinny: 4}} over "
+            f"{rep.replays} replays; by shape {json.dumps({n: {str(sh): c for sh, c in v.items()} for n, v in shapes.items()})}")
+        split["per_replay_wall_ms"] = round(split["wall_ms"] / rep.replays, 3)
+        log(f"[serve time] {tag}: " + json.dumps(split))
+        results[tag] = {"summary": summary, "split": split, "replays": rep.replays,
+                        "counts": shapes, "variant": variant, "plan": eng._session.plan}
+        del eng, rep, box
+        # the plan's device constants (a few KiB, cached on the plan) may
+        # stay; an operand stack or a session's tensors would be >= 10 MiB
+        left = torch.cuda.memory_allocated()
+        log(f"[{tag}] allocated before the run {held} bytes, after it {left}")
+        if left - held > 1 << 20:
+            raise AssertionError(f"[{tag}] {left - held} bytes still allocated after the run")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] peak allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    serve_escalation(torch, K, serve, runtime, constructions, layers, gf, w, args)
+    serve_reduced(torch, serve, runtime, constructions, args)
+    return {"runs": results, "peak": peak}
+
+
+def serve_escalation(torch, K, serve, runtime, constructions, layers, gf, w, args) -> None:
+    """The scenario of the reference's test_engine_hybrid_escalates_and_corrects
+    at full width: a persistently corrupt fastest worker; the first replay
+    rejects it on the detect path, later replays BW-correct it."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = constructions.PlanConfig("age", 2, 2, 2)
+    pool = cfg.n_workers + 6
+    trace = runtime.sample_trace(pool, runtime.Deterministic(1.0), seed=2)
+    trace = dataclasses.replace(trace, uplink_delay=0.1 + 0.01 * np.arange(pool))
+    trace = trace.with_faults(corrupt_ids=[0])
+    eng = serve.ServingEngine(w, [trace], cfg, seed=args.seed, decode_mode="hybrid",
+                              verify_extras=2)
+    rng = np.random.default_rng(args.seed + 7)
+    xs = [rng.normal(size=(512, w.shape[0])) for _ in range(3)]
+    for i, x in enumerate(xs):
+        eng.submit(x, 8.0 * i)
+    t0 = time.perf_counter()
+    rep = eng.run()
+    secs = time.perf_counter() - t0
+    cache: dict = {}
+    for r, x in zip(rep.requests, xs):
+        y, _ = serve_oracle(torch, np, layers, gf, w, x, cache)
+        if r.state != "done" or not np.array_equal(r.y, y):
+            raise AssertionError(f"[serve escalation] request {r.rid} wrong")
+    corrected = [o.n_corrected for o in eng._obs]
+    if not (eng._session.hybrid_state.escalated and corrected[0] == 0 and any(corrected[1:])):
+        raise AssertionError(f"[serve escalation] corrected per replay {corrected}")
+    log(f"[serve escalation] pool {pool}, worker 0 corrupt and fastest: every y exact; "
+        f"corrected per replay {corrected} (detect first, then BW); {rep.replays} replays "
+        f"in {secs:.2f} s; " + json.dumps(rep.summary()))
+
+
+def serve_reduced(torch, serve, runtime, constructions, args) -> None:
+    """The [serve] stream at k = 256, rows 32, out 64 on the card and on
+    the CPU, on both kernel backends, and once over an elastic pool that
+    shrinks from 21 to 19 workers (a reconfiguration barrier): equal
+    summaries, requests and y."""
+    import numpy as np
+
+    cfg, traces, w, xs, arrivals = serve_stream(np, runtime, constructions, args.seed, 256, 32, 64)
+    master = traces[0]
+    elastic = runtime.ElasticPool(
+        master, (tuple(range(21)),) * 3 + (tuple(range(19)),) * (SERVE_REQUESTS - 3))
+    cases = {"continuous auto": (traces, "continuous", "auto"),
+             "boundary auto": (traces, "boundary", "auto"),
+             "continuous cuda": (traces, "continuous", "cuda"),
+             "elastic 21 -> 19": (elastic, "continuous", "auto")}
+    for name, (source, mode, backend) in cases.items():
+        outcome = {}
+        for dev in (None, "cpu"):
+            eng = serve.ServingEngine(w, source, cfg, seed=args.seed, mode=mode, pipe_depth=2,
+                                      max_batch=SERVE_MAX_BATCH, slo=30.0, decode_mode="hybrid",
+                                      backend=backend, validate=True, device=dev)
+            for x, t in zip(xs, arrivals):
+                eng.submit(x, float(t))
+            rep = eng.run()
+            if eng._session.device != eng.device:
+                raise AssertionError(f"[serve reduced] {name}: the session left the device")
+            outcome[dev] = (rep.summary(), [request_record(r) for r in rep.requests],
+                            [r.y for r in rep.requests])
+        card, cpu = outcome[None], outcome["cpu"]
+        if card[:2] != cpu[:2] or not all(
+                (a is None and b is None) or np.array_equal(a, b) for a, b in zip(card[2], cpu[2])):
+            raise AssertionError(f"[serve reduced] {name}: card and CPU differ")
+        log(f"[serve reduced] {name}: card == CPU; " + json.dumps(card[0]))
+
+
+def serve_sites(plan, batch: int) -> dict:
+    """Launch sites of one serving replay of ``batch`` requests: those of
+    ``run_batch_over_pool`` (B) on the engine's plan, named S."""
+    return {"S" + name[1:]: shapes for name, shapes in edge_sites(plan, batch).items()
+            if name.startswith("B")}
+
+
+def serve_entries(torch, K, ref, serve_run: dict, args) -> list:
+    """The serving replays' launch sites for the ``kernels`` line: each
+    site of a one-request replay, timed, with its launches over the
+    [serve] runs of its variant; every other shape those runs launched
+    (a replay of several requests) held exact against the plain version
+    too.  A launch at a shape no serving site has fails."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 9)
+    entries = []
+    for variant in ("int32", "f32"):
+        runs = [r for r in serve_run["runs"].values() if r["variant"] == variant]
+        plan = runs[0]["plan"]
+        counts: dict = {}
+        for run in runs:
+            for compiled, shapes in run["counts"].items():
+                for shape, n in shapes.items():
+                    counts[(compiled, shape)] = counts.get((compiled, shape), 0) + n
+        sites = {}  # (compiled, shape) -> (batch, site, a shape, b shape)
+        for batch in range(SERVE_MAX_BATCH, 0, -1):
+            for site, (sa, sb) in serve_sites(plan, batch).items():
+                shape = geometry(sa, sb)
+                compiled = f"{variant}_{K.choose_design(variant, False, *shape)}"
+                sites[(compiled, shape)] = (batch, site, sa, sb)
+        stray = sorted(set(counts) - set(sites))
+        if stray:
+            raise AssertionError(f"[serve] {variant} launches at no serving site: {stray}")
+        for key, (batch, site, sa, sb) in sites.items():
+            if batch == 1:
+                if counts.get(key, 0) < 1:
+                    raise AssertionError(f"{key[0]} never launched at serving site {site} {key[1]}")
+                entries.append(measure_site(torch, K, ref, gen, f"modmatmul_{variant}", variant,
+                                            False, site, sa, sb, plan.scheme.z, counts[key], args))
+            elif key in counts:
+                check_site(torch, K, ref, gen, f"{key[0]} at {site} of a {batch}-request replay",
+                           variant, False, sa, sb, plan.scheme.z)
+                log(f"[serve sites] {key[0]} {site} {list(sa)}@{list(sb)} ({batch} requests, "
+                    f"{counts[key]} launches): exact against plain")
+                torch.cuda.empty_cache()
+    return entries
+
+
+# ----------------------------------------------------------------------
+# phase 7: the CRT route
+# ----------------------------------------------------------------------
+CRT_PRIMES = (65521, 65519)
+
+
+def phase_crt(torch, K, layers, protocol, planner, constructions, gf, ops, args) -> dict:
+    """``secure_matmul_crt`` at the main path's width (a [4, 5120, 512], b
+    [4, 5120, 4096], float, z = 2) on both kernel backends, fused and
+    unfused: y equal to the centered lift of the float64 card oracle of
+    aq_signed^T bq_signed over scale**2, and the launches twice
+    run_batched's; the combined integers of ``run_batched_crt`` on the
+    same plans equal the oracle mod p1*p2; one ``mod_matmul_crt`` of
+    [512, 5120] @ [5120, 4096] against the same oracle."""
+    import numpy as np
+
+    batch, (k, rows, out) = args.batch, WIDTH
+    pbig = CRT_PRIMES[0] * CRT_PRIMES[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 8)
+    a = torch.randn((batch, k, rows), generator=gen, device="cuda", dtype=torch.float64)
+    b = torch.randn((batch, k, out), generator=gen, device="cuda", dtype=torch.float64)
+    # the scale search of secure_matmul_crt, over P = p1*p2
+    a_max, w_max = float(a.abs().max()) + 1e-9, float(b.abs().max()) + 1e-9
+    scale = 1
+    while k * (a_max * 2 * scale) * (w_max * 2 * scale) < (pbig - 1) // 2:
+        scale *= 2
+    aq, bq = torch.round(a * scale).to(torch.int64), torch.round(b * scale).to(torch.int64)
+    # exact: every partial sum is an integer far below 2**53
+    exact = torch.matmul(aq.transpose(1, 2).double(), bq.double()).to(torch.int64)
+    want = torch.remainder(exact, pbig).cpu().numpy()
+    signed = exact.cpu().numpy()
+    y_want = torch.as_tensor(signed.astype("float64") / (scale * scale), device="cuda")
+    log(f"[crt] AGE s=t=z=2 over p = {CRT_PRIMES}: a [{batch}, {k}, {rows}], b [{batch}, {k}, {out}] "
+        f"(unit normals), scale {scale}; |aq^T bq| up to {int(abs(signed).max())} "
+        f"(p1*p2 = {pbig})")
+    # the residue plans secure_matmul_crt takes from the plan cache
+    scheme = constructions.build_scheme("age", 2, 2, 2)
+    shapes = planner.BlockShapes(k=k, ma=rows, mb=out, s=2, t=2)
+    plans = [planner.get_plan(scheme, shapes, field=gf.Field(q), n_spare=0,
+                              seed=args.seed + 17 * i) for i, q in enumerate(CRT_PRIMES)]
+    # the host combine on this product's residues, timed alone
+    residues = [np.remainder(want, q) for q in CRT_PRIMES]
+    combines = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        combined = gf.crt_combine(residues, CRT_PRIMES)
+        combines.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(combined, want):
+        raise AssertionError("[crt] crt_combine of the oracle's residues differs from it")
+    comb = statistics.median(combines)
+    results = {}
+    for backend, variant in (("auto", "int32"), ("cuda", "f32")):
+        for fused in (False, True):
+            tag = f"crt {backend} {'fused' if fused else 'unfused'}"
+            call = lambda: layers.secure_matmul_crt(  # noqa: E731
+                a, b, s=2, t=2, z=2, primes=CRT_PRIMES, seed=args.seed, backend=backend,
+                fused_masks=fused)
+            K.reset_launch_counts()
+            res = call()
+            torch.cuda.synchronize()
+            got = {n: c for n, c in K.LAUNCHES.items() if c}
+            by_kernel = {n: c for n, c in K.LAUNCHES_BY_KERNEL.items() if c}
+            by = (MAIN_BY_KERNEL if variant == "int32" else F32_BY_KERNEL)[fused]
+            expect = ({f"modmatmul_{variant}": 4, f"modmatmul_{variant}_masked": 6} if fused
+                      else {f"modmatmul_{variant}": 12})
+            if got != expect or by_kernel != {n: 2 * c for n, c in by.items()}:
+                raise AssertionError(f"[{tag}] launches {got} / {by_kernel}")
+            if res.plan is not plans[0] or not torch.equal(res.y, y_want):
+                raise AssertionError(f"[{tag}] y differs from the oracle's centered lift")
+            combined, _ = protocol.run_batched_crt(plans, aq, bq, seed=args.seed + 31,
+                                                   backend=backend, fused_masks=fused)
+            if not np.array_equal(combined, want):
+                raise AssertionError(f"[{tag}] combined integers differ from the oracle")
+            wall = wall_ms(torch, call, args.reps)
+            results[tag] = {"median_wall_ms": round(wall, 3), "host_combine_ms": round(comb, 3),
+                            "combine_share": round(comb / wall, 4), "launches": by_kernel}
+            log(f"[{tag}] combined integers and y exact; launches {by_kernel} (twice "
+                f"run_batched's); " + json.dumps(results[tag]))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = ops.mod_matmul_crt(aq[0].T, bq[0], primes=CRT_PRIMES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not (got == want[0]).all():
+        raise AssertionError("[crt mod_matmul_crt] differs from the oracle")
+    by_kernel = {n: c for n, c in K.LAUNCHES_BY_KERNEL.items() if c}
+    log(f"[crt mod_matmul_crt] [{rows}, {k}] @ [{k}, {out}] exact mod p1*p2 in {secs * 1e3:.1f} ms "
+        f"(first call); launches {by_kernel}")
+    del a, b, aq, bq, exact, y_want
+    torch.cuda.empty_cache()
+    return results
+
+
+# ----------------------------------------------------------------------
+# phase 8: the fuzz harness on the kernel engines
+# ----------------------------------------------------------------------
+FUZZ_EXAMPLES = 96
+
+
+def phase_fuzz(K, fuzz, args) -> dict:
+    import numpy as np
+
+    engines = ["cuda", "cuda_int32", "crt"]
+    rng = np.random.default_rng(args.seed)
+    cases = [fuzz.sample_case(rng, deep_k=i % 4 == 0) for i in range(FUZZ_EXAMPLES)]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    found = fuzz.run_fuzz(examples=FUZZ_EXAMPLES, seed=args.seed, engines=engines, deep_every=4)
+    secs = time.perf_counter() - t0
+    if found:
+        raise AssertionError("[fuzz] " + "; ".join(m.describe() for m in found[:10]))
+    by_kernel = {n: c for n, c in K.LAUNCHES_BY_KERNEL.items() if c}
+    log(f"[fuzz] {FUZZ_EXAMPLES} cases (seed {args.seed}) through {engines} in {secs:.1f} s: "
+        f"0 mismatches against the oracle; primes {sorted({c.p for c in cases})}, modes "
+        f"{sorted({c.mode for c in cases})}, layouts {sorted({c.layout for c in cases})}, "
+        f"max K {max(c.k for c in cases)}; launches {by_kernel}")
+    return {"cases": FUZZ_EXAMPLES, "seconds": secs, "launches": by_kernel}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1043,10 +1456,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
 
-    from repro_torch import runtime
-    from repro_torch.core import constructions, layers, planner, protocol
+    from repro_torch import runtime, serve
+    from repro_torch.core import constructions, gf, layers, planner, protocol
+    from repro_torch.kernels.modmatmul import fuzz
     from repro_torch.kernels.modmatmul import kernel as K
-    from repro_torch.kernels.modmatmul import ref
+    from repro_torch.kernels.modmatmul import ops, ref
     from repro_torch.runtime import scheduler
 
     smi = subprocess.run(
@@ -1065,20 +1479,28 @@ def main() -> int:
     main_run = phase_main(torch, K, protocol, layers, planner, constructions, args)
     f32_run = phase_f32(torch, K, protocol, planner, constructions, args)
     edge_run = phase_edge(torch, K, protocol, planner, constructions, runtime, scheduler, args)
+    serve_run = phase_serve(torch, K, serve, runtime, constructions, layers, gf, protocol,
+                            scheduler, args)
+    crt_run = phase_crt(torch, K, layers, protocol, planner, constructions, gf, ops, args)
+    fuzz_run = phase_fuzz(K, fuzz, args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
     entries += site_entries(torch, K, ref, f32_run, "f32", args)
     entries += edge_entries(torch, K, ref, edge_run, args)
+    entries += serve_entries(torch, K, ref, serve_run, args)
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"kernel {name} was not launched on its path")
     on_path = {n for by in (MAIN_BY_KERNEL, F32_BY_KERNEL) for d in by.values() for n in d}
     on_path |= {n for counts in edge_run["counts"].values() for n in counts}
+    on_path |= {n for run in serve_run["runs"].values() for n in run["counts"]}
+    on_path |= {n for run in crt_run.values() for n in run["launches"]}
     for name in on_path:
         if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"compiled kernel {name} was not launched on its path")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
-        f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes")
+        f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes; "
+        f"serve peak {serve_run['peak']} bytes; fuzz {fuzz_run['cases']} cases clean")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

@@ -533,6 +533,34 @@ def field_mask(key: Key, shape: tuple, p: int = P_DEFAULT, device="cpu") -> torc
     return barrett_reduce_u32(x0, p).to(torch.int32).reshape(tuple(shape))
 
 
+def crt_combine(residues, primes) -> np.ndarray:
+    """Chinese-Remainder combination of per-prime residue arrays.
+
+    Garner's algorithm on the host: int64-exact for
+    ``prod(primes) < 2**62`` (checked loudly).  Returns int64 in
+    [0, prod(primes)).  Copied from the JAX package.
+    """
+    primes = [int(q) for q in primes]
+    if len(residues) != len(primes):
+        raise ValueError("one residue array per prime required")
+    prod = 1
+    for q in primes:
+        prod *= q
+    if prod >= 1 << 62:
+        raise ValueError(
+            f"prod(primes) = {prod} >= 2**62: CRT combination would "
+            f"overflow int64 — use fewer/smaller primes"
+        )
+    x = np.asarray(residues[0], np.int64) % primes[0]
+    m = primes[0]
+    for r, q in zip(residues[1:], primes[1:]):
+        inv = pow(m % q, -1, q)  # raises if the moduli are not coprime
+        diff = (np.asarray(r, np.int64) - x) % q
+        x = x + (diff * inv % q) * m
+        m *= q
+    return x
+
+
 def mod_mul(a: torch.Tensor, b: torch.Tensor, p: int = P_DEFAULT) -> torch.Tensor:
     """Elementwise a*b mod p (the uint32 product of the JAX package)."""
     _check_limb_prime(p)

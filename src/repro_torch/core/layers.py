@@ -7,6 +7,8 @@ GF(p) and centered-lift decode; ``secure_matmul_batched`` runs a batch
 through the batched engine with the quantisation done on the device.
 ``InlineExecutor`` / ``secure_matmul_submit`` defer products and fold
 each group into one ``protocol.run_batched`` at flush.
+``secure_matmul_crt`` runs the batched engine once per 16-bit prime of a
+CRT modulus (``protocol.run_batched_crt``) for more fixed-point range.
 ``PrivateLinear`` wraps a weight matrix as "source 2" so that
 activations from "source 1" are multiplied without either worker (or
 the master) learning the operands.
@@ -339,6 +341,79 @@ def secure_matmul(
     yq, trace = protocol.run(plan, aq, bq, seed=seed + 1, device=device)
     y = torch.from_numpy(field.decode(yq, scale * scale)).to(device)
     return SecureMatmulResult(y=y, trace=trace, plan=plan)
+
+
+def secure_matmul_crt(
+    a,
+    b,
+    method: str = "age",
+    s: int = 2,
+    t: int = 2,
+    z: int = 1,
+    primes: tuple = (65521, 65519),
+    scale: Optional[int] = None,
+    seed: int = 0,
+    n_spare: int = 0,
+    backend: str = "auto",
+    fused_masks: bool = False,
+    device=None,
+) -> SecureMatmulResult:
+    """CRT multi-prime CMPC: run the protocol once per 16-bit prime and
+    combine residues with the Chinese Remainder Theorem.  The effective
+    modulus P = prod(primes) ~ 2**32 for the default pair gives
+    fixed-point headroom a single 16-bit field cannot, at one extra
+    protocol pass per extra prime.
+
+    Routed through ``protocol.run_batched_crt``: ``a``/``b`` may be 2D
+    ([k, ma]/[k, mb], promoted to batch 1, returning a 2D ``y``) or
+    batched 3D, numpy arrays or tensors.  The quantisation runs on
+    ``device`` (default: the GPU), every residue pass there too; the
+    combine and the centered lift are int64 on the host, and y is
+    float64 on ``device``.  Residue plans come from the process-wide
+    plan cache (one per prime field, plan seeds ``seed + 17*i``).
+    """
+    device = protocol.resolve_device(device)
+    a = torch.as_tensor(a, device=device).to(torch.float64)
+    b = torch.as_tensor(b, device=device).to(torch.float64)
+    batched = a.dim() == 3
+    if not batched:
+        a = a[None]
+        b = b[None]
+    _, k, ma = a.shape
+    mb = b.shape[-1]
+    pbig = 1
+    for p in primes:
+        pbig *= int(p)
+    if scale is None:
+        half = (pbig - 1) // 2
+        a_max = float(a.abs().max()) + 1e-9
+        w_max = float(b.abs().max()) + 1e-9
+        scale = 1
+        while k * (a_max * 2 * scale) * (w_max * 2 * scale) < half:
+            scale *= 2
+    scheme = build_scheme(method, s, t, z)
+    shapes = BlockShapes(k=k, ma=ma, mb=mb, s=s, t=t)
+    plans = [
+        get_plan(
+            scheme, shapes, field=Field(int(p)), n_spare=n_spare,
+            seed=seed + 17 * i,
+        )
+        for i, p in enumerate(primes)
+    ]
+    # np.rint and torch.round both round half to even
+    aq_signed = torch.round(a * scale).to(torch.int64)
+    bq_signed = torch.round(b * scale).to(torch.int64)
+    combined, trace = protocol.run_batched_crt(
+        plans, aq_signed, bq_signed, seed=seed + 31,
+        backend=backend, fused_masks=fused_masks, device=device,
+    )
+    # centered lift from [0, P) to (-P/2, P/2], then undo the scaling
+    half = pbig // 2
+    signed = np.where(combined > half, combined - pbig, combined)
+    y = signed.astype(np.float64) / (scale * scale)
+    if not batched:
+        y = y[0]
+    return SecureMatmulResult(y=torch.from_numpy(y).to(device), trace=trace, plan=plans[0])
 
 
 class LinearHandle:

@@ -11,7 +11,8 @@ of its execution paths:
                      ``degree_reduce``, ``reconstruct*``); the edge
                      runtime's per-product data plane,
 * ``run_batched``  — the batched engine below, every phase on the
-                     device.
+                     device; ``run_batched_crt`` runs it once per prime
+                     of a CRT modulus and combines on the host.
 
 The three phases:
 
@@ -52,7 +53,7 @@ from ..kernels.modmatmul.ops import (
     polyeval_masked,
 )
 from ..obs.tracer import TRACER
-from .gf import Key, mod_add, prng_key, random_field_device, split
+from .gf import Key, crt_combine, mod_add, prng_key, random_field_device, split
 from .planner import CMPCPlan
 
 
@@ -510,6 +511,59 @@ def run_batched(
             p=p, t=t, backend=backend,
         )
     return y.to(torch.int64), batch_trace(plan, int(batch))
+
+
+def _sum_traces(traces: Sequence[Trace]) -> Trace:
+    """Aggregate per-residue traces whose wire widths may differ (CRT
+    primes of different byte widths): element counts sum, the combined
+    width is the widest residue's (an upper bound on the byte view)."""
+    out = Trace(elem_bytes=max(t.elem_bytes for t in traces))
+    for t in traces:
+        out.phase1_source_to_worker += t.phase1_source_to_worker
+        out.phase2_worker_to_worker += t.phase2_worker_to_worker
+        out.phase3_worker_to_master += t.phase3_worker_to_master
+    return out
+
+
+def run_batched_crt(
+    plans: Sequence[CMPCPlan],
+    a,
+    b,
+    seed: int = 0,
+    phase2_ids: Optional[Sequence[int]] = None,
+    phase3_ids: Optional[Sequence[int]] = None,
+    backend: str = "auto",
+    fused_masks: bool = False,
+    device=None,
+) -> Tuple[np.ndarray, Trace]:
+    """CRT multi-prime batched protocol: Y mod prod(p_i) from one
+    ``run_batched`` per residue plan.
+
+    ``plans`` hold the same scheme/shapes over *distinct* prime fields;
+    operands are arbitrary integers (numpy or tensors), uploaded once to
+    ``device`` (default: the GPU) as int64 and reduced per field inside
+    ``run_batched`` with ``torch.remainder`` (numpy's sign rule).
+    Residue ``i`` runs with ``seed + 31*i``; the residue outputs come to
+    the host and combine there via Garner's algorithm into int64 numpy
+    in [0, prod(p_i)).  The returned Trace sums all residue passes.
+    """
+    primes = [plan.field.p for plan in plans]
+    if len(set(primes)) != len(primes):
+        raise ValueError(f"CRT plans must use distinct primes, got {primes}")
+    device = resolve_device(device)
+    a = torch.as_tensor(a, device=device).to(torch.int64)
+    b = torch.as_tensor(b, device=device).to(torch.int64)
+    residues, traces = [], []
+    with TRACER.span("protocol.run_batched_crt", primes=len(primes)):
+        for i, plan in enumerate(plans):
+            y, tr = run_batched(
+                plan, a, b, seed=seed + 31 * i,
+                phase2_ids=phase2_ids, phase3_ids=phase3_ids,
+                backend=backend, fused_masks=fused_masks, device=device,
+            )
+            residues.append(y.cpu().numpy())
+            traces.append(tr)
+    return crt_combine(residues, primes), _sum_traces(traces)
 
 
 # ----------------------------------------------------------------------

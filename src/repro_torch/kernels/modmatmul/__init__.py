@@ -4,7 +4,9 @@ from .kernel import (  # noqa: F401
     reset_launch_counts,
 )
 from .ops import (  # noqa: F401
+    autotune_tiles,
     mod_matmul,
+    mod_matmul_crt,
     mod_matmul_masked,
     padded_shape,
     padding_waste,

@@ -24,15 +24,26 @@ broadcast against each other and are flattened into the kernel's one
 batch axis, and an operand whose batch dims are absent or all 1 stays
 2D — the kernel reads it with batch stride 0, so it is never copied per
 batch element.
+
+Tiles: each compiled design has one block shape (``pick_tiles``);
+``autotune_tiles`` times the candidates compiled for a shape on the
+device and pins the winner, which ``pick_tiles`` then returns first.
+``mod_matmul_crt`` widens the range past one 16-bit prime: one
+``mod_matmul`` per prime, combined on the host.
 """
 from __future__ import annotations
 
+import time
+import warnings
+
+import numpy as np
 import torch
 
 from ...core.gf import (
     CHUNK_K,
     INT32_ACC_K,
     P_DEFAULT,
+    crt_combine,
     field_mask,
     mod_add,
     mod_matmul_f32,
@@ -69,6 +80,9 @@ def _pick_tiles_int32(m: int, k: int, n: int, z: int = 0) -> tuple:
 
 _TILE_CHOOSERS = {"cuda": _pick_tiles_f32, "cuda_int32": _pick_tiles_int32}
 
+# (backend, m, k, n, z) -> tiles pinned by autotune_tiles
+_AUTOTUNE_CACHE: dict = {}
+
 
 def register_tile_chooser(backend: str, chooser) -> None:
     """Install a tile-selection policy ``chooser(m, k, n, z) -> (bm, bn,
@@ -81,8 +95,90 @@ def register_tile_chooser(backend: str, chooser) -> None:
 
 def pick_tiles(m: int, k: int, n: int, backend: str = "cuda_int32", z: int = 0) -> tuple:
     """(bm, bn, bk) the kernel backend runs one [M,K]@[K,N] product with
-    (plus z fused mask rows)."""
+    (plus z fused mask rows).  Exact-shape autotune pins
+    (``autotune_tiles``) take precedence over the backend's chooser."""
+    pinned = _AUTOTUNE_CACHE.get((backend, m, k, n, z))
+    if pinned is not None:
+        return pinned
     return _TILE_CHOOSERS.get(backend, _pick_tiles_int32)(m, k, n, z)
+
+
+def autotune_tiles(
+    m: int,
+    k: int,
+    n: int,
+    backend: str = "cuda_int32",
+    p: int = P_DEFAULT,
+    batch: int = 1,
+    candidates=None,
+    repeats: int = 3,
+    device=None,
+) -> tuple:
+    """Measure candidate tilings on the device and pin the winner.
+
+    Runs ``mod_matmul`` with each candidate ``(bm, bn, bk)`` on random
+    operands of the given shape (one warm-up excluded, best of
+    ``repeats``; CUDA events on the card, the host clock on the CPU,
+    where the plain version runs), stores the fastest in the exact-shape
+    cache that ``pick_tiles`` consults first, and returns it.  Only the
+    block shape of the design ``choose_design`` sends the shape to is
+    compiled, and it is the default candidate; any other candidate is
+    reported (a warning) as not compiled and not run.  Raises when no
+    candidate runs.  ``device`` defaults to the GPU.
+    """
+    from ...core.protocol import resolve_device
+
+    if backend not in _CUDA_VARIANTS:
+        raise ValueError(f"autotune_tiles supports the kernel backends, got {backend}")
+    device = resolve_device(device)
+    compiled = _compiled_tiles(backend, m, k, n)
+    if candidates is None:
+        candidates = [compiled]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    shape_a = (batch, m, k) if batch > 1 else (m, k)
+    shape_b = (batch, k, n) if batch > 1 else (k, n)
+    a = torch.randint(0, p, shape_a, generator=gen, dtype=torch.int32, device=device)
+    b = torch.randint(0, p, shape_b, generator=gen, dtype=torch.int32, device=device)
+    best, best_t, invalid = None, float("inf"), []
+    for tiles in candidates:
+        tiles = tuple(int(x) for x in tiles)
+        if tiles != compiled:
+            invalid.append(tiles)
+            warnings.warn(
+                f"autotune_tiles: {backend} tiles {tiles} are not compiled for "
+                f"[{m},{k}]@[{k},{n}] (the kernel has {compiled}); not run",
+                stacklevel=2,
+            )
+            continue
+        run = lambda: mod_matmul(a, b, p=p, backend=backend)  # noqa: E731
+        run()  # warm-up: the first call builds and loads the kernels
+        t = min(_timed(run, device) for _ in range(max(1, repeats)))
+        if t < best_t:
+            best, best_t = tiles, t
+    if best is None:
+        raise RuntimeError(
+            f"no autotune candidate ran for {backend} at [{m},{k}]@[{k},{n}]: "
+            f"{invalid} are not compiled (the kernel has {compiled})"
+        )
+    _AUTOTUNE_CACHE[(backend, m, k, n, 0)] = best
+    return best
+
+
+def _timed(run, device: torch.device) -> float:
+    """Seconds of one call of ``run``: CUDA events on the card, the host
+    clock on the CPU."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    run()
+    return time.perf_counter() - t0
 
 
 def padded_shape(m: int, k: int, n: int, tiles: tuple) -> tuple:
@@ -223,6 +319,48 @@ def mod_matmul_masked(
         _flatten_batch(a, batch), _flatten_batch(b, batch), v, key, p, variant
     )
     return out.reshape(batch + (m, n))
+
+
+def mod_matmul_crt(
+    a,
+    b,
+    primes: tuple = (65521, 65519),
+    backend: str = "auto",
+    device=None,
+) -> np.ndarray:
+    """Wide-range exact matmul via CRT over several 16-bit primes.
+
+    Computes a @ b mod prod(primes): one residue ``mod_matmul`` per
+    prime, combined on the host with Garner's algorithm.  Operands may
+    be any integers, numpy arrays or tensors; each is reduced per prime
+    with ``torch.remainder`` (numpy's sign rule), on the device of the
+    operand that is a tensor, else on ``device`` (default: the GPU); two
+    tensors on different devices raise ``ValueError``.  Returns int64
+    numpy in [0, prod(primes)), exact whenever the true product fits the
+    combined modulus.
+    """
+    from ...core.protocol import resolve_device
+
+    primes = tuple(int(q) for q in primes)
+    if len(set(primes)) != len(primes):
+        raise ValueError(f"CRT primes must be distinct, got {primes}")
+    on = [x.device for x in (a, b) if isinstance(x, torch.Tensor)]
+    if len(set(on)) > 1:
+        raise ValueError(f"mod_matmul_crt operands on two devices: a on {on[0]}, b on {on[1]}")
+    if device is None and on:
+        device = on[0]
+    device = resolve_device(device)
+    a = torch.as_tensor(a, device=device).to(torch.int64)
+    b = torch.as_tensor(b, device=device).to(torch.int64)
+    residues = [
+        mod_matmul(
+            torch.remainder(a, q).to(torch.int32),
+            torch.remainder(b, q).to(torch.int32),
+            p=q, backend=backend,
+        ).cpu().numpy().astype(np.int64)
+        for q in primes
+    ]
+    return crt_combine(residues, primes)
 
 
 def polyeval(

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the batched engine and the edge runtime through the kernels against the
-same entry points on the CPU.
+the batched engine, the edge runtime, the serving engine and the CRT
+route through the kernels against the same entry points on the CPU; the
+fuzz harness on the kernel engines, and ``autotune_tiles``.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports torch, numpy and the port only, so it runs on a machine without
@@ -12,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import runtime
-from repro_torch.core import constructions, gf, planner, protocol
+from repro_torch import runtime, serve
+from repro_torch.core import constructions, gf, layers, planner, protocol
+from repro_torch.kernels.modmatmul import fuzz
 from repro_torch.kernels.modmatmul import kernel as K
 from repro_torch.kernels.modmatmul import ops, ref
 
@@ -191,6 +193,23 @@ def _same(x, y, what):
         assert x == y, (what, x, y)
 
 
+def _corrupt_among_responders(plan, seed, dropout):
+    """The first trace from ``seed`` on (worker ``dropout`` dropped, worker
+    1 corrupt) where worker 1's response leg is among the decode
+    threshold's fastest, so that the decode meets the corrupt response
+    (chip_smoke.py's ``edge_trace`` rule)."""
+    for s in range(seed, seed + 1000):
+        trace = runtime.sample_trace(
+            plan.n_total, runtime.ShiftedExponential(1.0, 1.0),
+            runtime.FaultSpec(straggler_frac=0.2), seed=s,
+        ).with_faults(dropout_ids=[dropout], corrupt_ids=[1])
+        leg = trace.d2d_delay + trace.uplink_delay
+        order = [int(w) for w in np.argsort(leg, kind="stable") if not trace.dropout[w]]
+        if 1 in order[: plan.decode_threshold]:
+            return trace, s
+    raise AssertionError("no trace seed puts worker 1 among the fastest responders")
+
+
 def _edge_setup(depth=1):
     plan = planner.get_plan(
         constructions.build_scheme("age", 2, 2, 2),
@@ -199,13 +218,11 @@ def _edge_setup(depth=1):
     rng = np.random.default_rng(12)
     a = rng.integers(0, P, (depth, 4, 256, 32))
     b = rng.integers(0, P, (depth, 4, 256, 64))
-    traces = [
-        runtime.sample_trace(
-            plan.n_total, runtime.ShiftedExponential(1.0, 1.0),
-            runtime.FaultSpec(straggler_frac=0.2), seed=7 + k,
-        ).with_faults(dropout_ids=[2 + k], corrupt_ids=[1])
-        for k in range(depth)
-    ]
+    traces, seed = [], 7
+    for k in range(depth):
+        trace, seed = _corrupt_among_responders(plan, seed, dropout=2 + k)
+        traces.append(trace)
+        seed += 1
     want = np.einsum("rbki,rbkj->rbij", a.astype(object), b.astype(object)) % P
     return plan, a, b, traces, want.astype(np.int64)
 
@@ -260,3 +277,90 @@ def test_per_product_pipeline_and_planner_on_the_card_equal_the_cpu_run(cuda):
     assert [d.config.label() for d in card.decisions] == [d.config.label() for d in cpu.decisions]
     for mc, mg in zip(cpu.replay_metrics, card.replay_metrics):
         _same(mc, mg, "adaptive replay")
+
+
+# ----------------------------------------------------------------------
+# the serving tier, the CRT route, the fuzz harness and autotune_tiles
+# ----------------------------------------------------------------------
+def _serve_stream(device, backend):
+    """chip_smoke.py's [serve] stream at k = 256, rows 32, out 64."""
+    cfg = constructions.PlanConfig("age", 2, 2, 2)
+    traces = [runtime.sample_trace(cfg.n_workers + 4, runtime.ShiftedExponential(0.1, 0.5),
+                                   seed=9000 + i, net_scale=0.3) for i in range(8)]
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(256, 64))
+    eng = serve.ServingEngine(w, traces, cfg, slo=30.0, pipe_depth=2, max_batch=4,
+                              decode_mode="hybrid", backend=backend, validate=True, device=device)
+    for t in np.cumsum(rng.exponential(1 / 0.6, 8)):
+        eng.submit(rng.normal(size=(32, 256)), float(t))
+    return eng, eng.run()
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+def test_serving_engine_on_the_card_equals_the_cpu_run(cuda, backend):
+    _, cpu = _serve_stream("cpu", backend)
+    K.reset_launch_counts()
+    eng, card = _serve_stream(None, backend)
+    assert eng.device.type == "cuda" and eng._session.device == eng.device
+    assert card.summary() == cpu.summary() and card.summary()["served"] == 8
+    for rc_, rp_ in zip(card.requests, cpu.requests):
+        assert (rc_.state, rc_.launch, rc_.completion, rc_.replay) == (
+            rp_.state, rp_.launch, rp_.completion, rp_.replay)
+        np.testing.assert_array_equal(rc_.y, rp_.y)
+    # per replay: share A, share B, the Phase-2 multiply, mix and noise
+    deep = "int32_mma" if backend == "auto" else "f32_wgmma"
+    skinny = "int32_skinny" if backend == "auto" else "f32_skinny"
+    assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == {
+        deep: card.replays, skinny: 4 * card.replays}
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_secure_matmul_crt_on_the_card_equals_the_cpu_run(cuda, backend, fused):
+    rng = np.random.default_rng(6)
+    a = rng.normal(size=(2, 128, 32))
+    b = rng.normal(size=(2, 128, 64))
+    kw = dict(s=2, t=2, z=2, backend=backend, fused_masks=fused)
+    cpu = layers.secure_matmul_crt(a, b, device="cpu", **kw)
+    K.reset_launch_counts()
+    card = layers.secure_matmul_crt(a, b, **kw)
+    torch.cuda.synchronize()
+    assert card.y.device.type == "cuda"
+    assert torch.equal(card.y.cpu(), cpu.y)
+    variant = "int32" if backend == "auto" else "f32"
+    # twice run_batched's launches: one pass per prime
+    expect = ({f"modmatmul_{variant}": 4, f"modmatmul_{variant}_masked": 6} if fused
+              else {f"modmatmul_{variant}": 12})
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == expect
+    x = rng.integers(-(2**20), 2**20, (40, 300))
+    y = rng.integers(-(2**20), 2**20, (300, 33))
+    want = (x.astype(object) @ y.astype(object)) % (65521 * 65519)
+    got = ops.mod_matmul_crt(torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda),
+                             backend="cuda_int32" if backend == "auto" else "cuda")
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    with pytest.raises(ValueError, match="two devices"):
+        ops.mod_matmul_crt(torch.as_tensor(x), torch.as_tensor(y, device=cuda))
+
+
+def test_fuzz_kernel_engines_clean(cuda):
+    K.reset_launch_counts()
+    found = fuzz.run_fuzz(examples=32, seed=1, engines=["cuda", "cuda_int32", "crt"])
+    assert found == [], "\n".join(m.describe() for m in found)
+    # the cases straddle the skinny / tensor-core boundary on both variants
+    launched = {k for k, v in K.LAUNCHES_BY_KERNEL.items() if v}
+    assert {"int32_mma", "int32_skinny", "f32_wgmma", "f32_skinny"} <= launched
+
+
+@pytest.mark.parametrize("backend", ["cuda_int32", "cuda"])
+@pytest.mark.parametrize("shape", [(5, 7, 9), (40, 300, 70)])
+def test_autotune_tiles_on_the_card(cuda, backend, shape, monkeypatch):
+    monkeypatch.setattr(ops, "_AUTOTUNE_CACHE", {})
+    m, k, n = shape
+    compiled = ops.pick_tiles(m, k, n, backend=backend)
+    assert ops.autotune_tiles(m, k, n, backend=backend, batch=2) == compiled
+    assert ops._AUTOTUNE_CACHE == {(backend, m, k, n, 0): compiled}
+    rng = np.random.default_rng(m)
+    a, b = (torch.as_tensor(rng.integers(0, P, s), dtype=torch.int32, device=cuda)
+            for s in ((m, k), (k, n)))
+    assert torch.equal(ops.mod_matmul(a, b, backend=backend).cpu(),
+                       ref.PLAIN["int32"](a.cpu(), b.cpu(), P))

@@ -210,6 +210,16 @@ def test_port_imports_neither_jax_nor_the_reference():
             assert np.array_equal(run.y, want.astype(np.int64))
             run = runtime.run_over_pool(plan, a[0], b[0], trace, decode_mode=mode, device="cpu")
             assert np.array_equal(run.y, want[0].astype(np.int64))
+        import repro_torch.serve, repro_torch.kernels.modmatmul.fuzz as fuzz  # noqa: F401
+        from repro_torch.core import constructions as tc
+        traces = [runtime.sample_trace(tc.PlanConfig("age", 2, 2, 1).n_workers + 2,
+                                       runtime.ShiftedExponential(0.1, 0.5), seed=s) for s in (1, 2)]
+        eng = repro_torch.serve.ServingEngine(np.ones((4, 4)), traces, tc.PlanConfig("age", 2, 2, 1),
+                                              validate=True, device="cpu")
+        for i in range(3):
+            eng.submit(rng.normal(size=(2, 4)), 0.5 * i)
+        assert eng.run().summary()["served"] == 3
+        assert fuzz.run_fuzz(examples=2, engines=["int32", "crt"], device="cpu") == []
         loaded = [m for m in sys.modules if sys.modules[m] is not None
                   and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
         assert not loaded, loaded
