@@ -80,9 +80,26 @@ Phases (each raises on failure; the exit code is then not 0):
 8. fuzz    — ``fuzz.run_fuzz`` (96 cases from ``--seed``) through the
              ``cuda``, ``cuda_int32`` and ``crt`` engines on the card:
              zero mismatches against the arbitrary-precision oracle;
-9. timing  — each kernel at each launch site of its paths (the
-             ``run_batched`` sites, the edge runtime's and a serving
-             replay's at n_total 21 and one request): exact against the
+9. model   — Mistral-NeMo-12B at full width and depth on the card
+             (40 layers, d_model 5120, 32 x 128 heads, 8 KV heads, d_ff
+             14336, vocab 131072; random weights from ``--seed``; trunk
+             and embed in bfloat16, lm_head float32) and the launcher's
+             ``--private-head`` path over it (``repro_torch.launch.serve``,
+             batch 4, prompt 32, gen 4: three lm-head replays through the
+             ServingEngine on ``auto`` over 16 workers): every step
+             served, none shed; each replay's field values exact against
+             a float64 product of the encoded operands on the card; each
+             step's worst |logit - x W| below the bound that follows from
+             its scale; layer 0 card (bfloat16) against CPU (float32)
+             within 2**-5 of its largest output; init time, prefill ms and
+             trunk ms per step (CUDA events), each replay's wall split as
+             ``[serve time]`` splits it, the simulated p50/p95, the peak
+             device memory and the launches per compiled kernel;
+10. timing — each kernel at each launch site of its paths (the
+             ``run_batched`` sites, the edge runtime's, a serving
+             replay's at n_total 21 and one request, and an lm-head
+             replay's, H, at n_total 16; the plain version of the
+             10.7 GB H1 share B in column slices): exact against the
              plain version, CUDA-event time, device time of launches
              queued back to back (behind a busy-wait kernel), plain
              version, bound, library call, design; printed as one JSON
@@ -603,10 +620,26 @@ def phase_variant_path(torch, K, ref, protocol, planner, constructions, args) ->
 # ----------------------------------------------------------------------
 # phase 5: per-site timing and the kernels line
 # ----------------------------------------------------------------------
-def check_site(torch, K, ref, gen, what, variant, masked, sa, sb, z):
+def plain_error(torch, ref, variant, a, b, got, cols=0) -> int:
+    """max |got - plain(a, b)| over the whole output, or over column
+    slices of width ``cols`` (each slice's plain result dropped after its
+    comparison)."""
+    if not cols:
+        return int((got.to(torch.int64) - ref.PLAIN[variant](a, b, P).to(torch.int64)).abs().max())
+    err = 0
+    for c0 in range(0, b.shape[-1], cols):
+        exp = ref.PLAIN[variant](a, b[..., c0:c0 + cols], P).to(torch.int64)
+        err = max(err, int((got[..., c0:c0 + cols].to(torch.int64) - exp).abs().max()))
+    return err
+
+
+def check_site(torch, K, ref, gen, what, variant, masked, sa, sb, z, plain_cols=0):
     """Random inputs of one launch site's shape through the kernel and its
     plain version; raises unless they agree exactly.  Returns the
-    operands, the two calls and the error (0)."""
+    operands, the two calls and the error (0).  With ``plain_cols`` the
+    plain version runs over column slices of that width (each held
+    against the kernel's columns, then dropped), for outputs whose plain
+    version's int64 temporaries would not fit beside them."""
     a = torch.randint(0, P, sa, generator=gen, device="cuda", dtype=torch.int32)
     b = torch.randint(0, P, sb, generator=gen, device="cuda", dtype=torch.int32)
     v = torch.randint(0, P, (sa[-2], z), generator=gen, device="cuda", dtype=torch.int32)
@@ -617,6 +650,19 @@ def check_site(torch, K, ref, gen, what, variant, masked, sa, sb, z):
     else:
         kern = lambda: K.modmatmul_cuda(a, b, P, variant)  # noqa: E731
         plain = lambda: ref.PLAIN[variant](a, b, P)  # noqa: E731
+    if plain_cols and not masked:
+        def parts():
+            for c0 in range(0, sb[-1], plain_cols):
+                yield ref.PLAIN[variant](a, b[..., c0:c0 + plain_cols], P)
+
+        plain = lambda: collections.deque(parts(), maxlen=0)  # noqa: E731
+        got = kern()
+        err = plain_error(torch, ref, variant, a, b, got, plain_cols)
+        torch.cuda.synchronize()
+        del got
+        if err:
+            raise AssertionError(f"{what}: max abs error {err} against plain")
+        return a, b, v, kern, plain, err
     got, exp = kern(), plain()
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
@@ -625,15 +671,18 @@ def check_site(torch, K, ref, gen, what, variant, masked, sa, sb, z):
     return a, b, v, kern, plain, err
 
 
-def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_launch, args) -> dict:
+def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_launch, args,
+                 plain_cols=0) -> dict:
     """One launch site of ``variant`` on random inputs of its shape: the
-    kernel against its plain version, then its times, bound and library
-    call; logs a ``[timing]`` line and returns the ``kernels`` entry."""
+    kernel against its plain version (over column slices of
+    ``plain_cols``, if given: ``check_site``), then its times, bound and
+    library call; logs a ``[timing]`` line and returns the ``kernels``
+    entry."""
     shape = geometry(sa, sb)
     design = K.choose_design(variant, masked, *shape, z if masked else 0)
     compiled = f"{variant}_{design}" + ("_masked" if masked else "")
     a, b, v, kern, plain, err = check_site(torch, K, ref, gen, f"{name} at {site}", variant,
-                                           masked, sa, sb, z)
+                                           masked, sa, sb, z, plain_cols)
     reps = args.reps
     ms = cuda_ms(torch, kern, reps)
     dev_ms = device_ms(torch, kern, reps)
@@ -671,6 +720,9 @@ def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_l
     # f32_wgmma's own floor: two fp16 sets of depth 2K, 8 flop per MNK
     floor = (f"  fp16 floor {8 * B * M * Kd * N / FP16_TC_FLOPS * 1e3:.4f}"
              if base == "f32_wgmma" else "")
+    if plain_cols:
+        entry["plain_cols"] = plain_cols
+        floor += f"  (plain in column slices of {plain_cols})"
     log(f"[timing] {compiled:20s} {site:12s} {entry['shape']:44s} "
         f"{ms:9.3f} ms  device {entry['device_ms']}  plain {plain_ms:9.3f}  "
         f"bound {entry['bound_ms']:7.3f} "
@@ -1437,6 +1489,302 @@ def phase_fuzz(K, fuzz, args) -> dict:
     return {"cases": FUZZ_EXAMPLES, "seconds": secs, "launches": by_kernel}
 
 
+# ----------------------------------------------------------------------
+# phase 9: the dense decoder and the launcher's private head
+# ----------------------------------------------------------------------
+MODEL_ARCH = "mistral-nemo-12b"
+# the launcher's --private-head path at batch 4, prompt 32, gen 4: three
+# lm-head replays through the ServingEngine on 16 workers
+MODEL_ARGS = dict(batch=4, prompt_len=32, gen_len=4, workers=16)
+# one full-width block, bfloat16 on the card against float32 on the CPU
+# (the same weights): the card rounds q, k, v, the attention and MLP
+# outputs and the residual sums to bfloat16 (2**-9 relative each), so
+# allow 4 bfloat16 ulps of the largest output, 2**-5 * max|cpu|
+MODEL_BLOCK_TOL = 2.0**-5
+# the plain version of a launch with more outputs than this runs in
+# column slices (its int64 temporaries of the whole launch would not fit)
+PLAIN_SLICE_ELEMS = 1 << 30
+PLAIN_COLS = 1 << 23
+# the replay check's column slices hold at most this many elements of b
+# or of the output each: the plain version makes two float32 limb copies
+# of its b slice, beside the model and the replay's own operands
+REPLAY_SLICE_ELEMS = 1 << 28
+
+
+def model_block(torch, lm, map_tree, cfg, model, prompts) -> dict:
+    """Layer 0 of the model on the prompt's embeddings: on the card in
+    bfloat16 and on the CPU in float32, from the same (bfloat16-stored)
+    weights; raises past ``MODEL_BLOCK_TOL``."""
+    params = model.params()
+    layer0 = map_tree(lambda _, a: a[0], params["layers"])
+    tokens = torch.as_tensor(prompts, device="cuda").long()
+    x = lm._embed_tokens(cfg, params, tokens, torch.bfloat16)
+    pos = torch.arange(x.shape[1], device="cuda").expand(x.shape[:2])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    card, _ = lm._block_apply(cfg, layer0, x, pos)
+    end.record()
+    end.synchronize()
+    t0 = time.perf_counter()
+    cpu, _ = lm._block_apply(cfg, map_tree(lambda _, a: a.float().cpu(), layer0),
+                                x.float().cpu(), pos.cpu())
+    cpu_s = time.perf_counter() - t0
+    card = card.float().cpu()
+    err = float((card - cpu).abs().max())
+    top = float(cpu.abs().max())
+    rel = float((card - cpu).norm() / cpu.norm())
+    if not bool(torch.isfinite(card).all()) or err > MODEL_BLOCK_TOL * top:
+        raise AssertionError(f"[model block] max |card - cpu| {err} > {MODEL_BLOCK_TOL} * {top}")
+    log(f"[model block] layer 0 on {tuple(x.shape)}: card (bfloat16) {start.elapsed_time(end):.3f} "
+        f"ms, CPU (float32) {cpu_s:.2f} s; max |card - cpu| {err:.4e} <= {MODEL_BLOCK_TOL} * "
+        f"max |cpu| {top:.4e}; relative Frobenius {rel:.3e}")
+    return {"max_abs_err": err, "max_abs": top, "rel_fro": rel}
+
+
+def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args) -> dict:
+    """Mistral-NeMo-12B at full width and depth on the card (random
+    weights from ``--seed``), and the launcher's private-head decode over
+    it: prefill, then each step's trunk on the card and its lm-head
+    matmul replayed under CMPC by the ServingEngine on ``auto``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import build_model, lm
+    from repro_torch.models.common import count_params, map_tree
+
+    cfg = get_config(MODEL_ARCH)
+    ns = argparse.Namespace(**MODEL_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != count_params(lm.decoder_abstract(cfg)):
+        raise AssertionError(f"[model] {n_params} parameters")
+    log(f"[model] {MODEL_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} x {cfg.resolved_head_dim} heads ({cfg.num_kv_heads} KV), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters (param_count "
+        f"{cfg.param_count()}), random from seed {args.seed}, trunk and embed in "
+        f"{cfg.compute_dtype}, lm_head float32: {torch.cuda.memory_allocated()} bytes; "
+        f"init {init_s:.2f} s")
+
+    max_len = ns.prompt_len + ns.gen_len
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (ns.batch, ns.prompt_len)).astype(np.int32)
+    model.prefill({"tokens": prompts}, model.init_cache(ns.batch, max_len))  # warm-up
+    cache = model.init_cache(ns.batch, max_len)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    if tuple(logits.shape) != (ns.batch, 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"[model] prefill logits {tuple(logits.shape)} not finite")
+    tok = launcher.argmax_last(logits, cfg.vocab_size)
+    block = model_block(torch, lm, map_tree, cfg, model, prompts)
+
+    # the launcher's private-head path; each trunk step timed with CUDA
+    # events, each engine run split as [serve time] splits it; the first
+    # replay's own kernel launches kept and, after its run, held against
+    # the plain version (model_replay_check)
+    trunk_ms, splits, engines, captured = [], [], [], []
+    replay_check = {"launches": [], "seconds": 0.0, "peak": 0}
+    modules = {"protocol": protocol, "scheduler": scheduler}
+    hidden_step, engine_run = model.hidden_step, serve.ServingEngine.run
+    launch = ops.modmatmul_cuda
+
+    def capturing(a, b, p, variant):
+        out = launch(a, b, p, variant)
+        if len(engines) == 1:
+            captured.append((a, b, out, variant))
+        return out
+
+    def timed_step(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = hidden_step(*a, **kw)
+        e1.record()
+        e1.synchronize()
+        trunk_ms.append(e0.elapsed_time(e1))
+        return out
+
+    def split_run(self):
+        engines.append(self)
+        box = {}
+        splits.append(split_call(torch, modules, lambda: box.setdefault("report", engine_run(self))))
+        if len(engines) == 1:
+            t0 = time.perf_counter()
+            replay_check["launches"] = model_replay_check(torch, ref, captured,
+                                                          self._session.plan)
+            captured.clear()
+            replay_check["seconds"] = time.perf_counter() - t0
+            # the held operands raise this replay's peak; the served peak
+            # is read over the later replays
+            replay_check["peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        return box["report"]
+
+    model.hidden_step = timed_step
+    serve.ServingEngine.run = split_run
+    ops.modmatmul_cuda = capturing
+    K.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        steps, report, worst = launcher._decode_private_head(ns, cfg, model, cache, tok)
+        decode_s = time.perf_counter() - t0 - replay_check["seconds"]
+    finally:
+        serve.ServingEngine.run = engine_run
+        ops.modmatmul_cuda = launch
+        del model.hidden_step
+    torch.cuda.synchronize()
+    by_kernel = {n: c for n, c in K.LAUNCHES_BY_KERNEL.items() if c}
+    shapes = launched_shapes(K)
+    peak = torch.cuda.max_memory_allocated()
+    eng = engines[0]
+    summary = report.summary()
+    if (steps != ns.gen_len - 1 or summary["served"] != steps or summary["shed"]
+            or any(r.state != "done" for r in report.requests)):
+        raise AssertionError(f"[model] {steps} steps: {summary}")
+    sites = model_sites(eng._session.plan)
+    want = {n: {sh: c * summary["replays"] for sh, c in v.items()}
+            for n, v in expected_shapes(K, sites, sites, "int32").items()}
+    if shapes != want:
+        raise AssertionError(f"[model] launches {shapes} over {summary['replays']} replays, "
+                             f"expected {want}")
+
+    # each replay's field values against a float64 product of the encoded
+    # operands on the card; each logit within its quantisation bound.  At
+    # k = 5120 the encoded head is all zero (ROADMAP C8), so both checks
+    # compare zeros here; model_replay_check holds the kernels on the
+    # replay's own (non-zero) operands
+    field = gf.Field(P)
+    k, vocab = eng.w.shape
+    w_max = float(np.abs(eng.w).max() + 1e-9)
+    cards, errors, bounds, scales, nonzero = {}, [], [], [], {}
+    for r, rep in zip(report.requests, eng._session._replays):
+        s = layers.choose_scales(k, float(np.abs(r.x).max() + 1e-9), w_max, P)
+        scales.append(s)
+        if s not in cards:
+            wq = eng._wq_cache[s]
+            nonzero[s] = float(np.count_nonzero(wq)) / wq.size
+            cards[s] = torch.from_numpy(wq).to("cuda").double()
+        aq = torch.as_tensor(field.encode(r.x, s), device="cuda").double()
+        want = torch.remainder(aq @ cards[s], P).to(torch.int64).cpu().numpy()
+        if rep.y.shape != (1,) + want.shape or not np.array_equal(rep.y[0], want):
+            raise AssertionError(f"[model] replay {rep.index}: field values differ from the "
+                                 "card's float64 product")
+        x = r.x[: ns.batch]
+        errors.append(float(np.abs(r.y[: ns.batch, :vocab] - x @ eng.w).max()))
+        bounds.append(launcher.head_error_bound(x, eng.w, s))
+        if errors[-1] > bounds[-1]:
+            raise AssertionError(f"[model] replay {rep.index}: |logit - x W| {errors[-1]} > "
+                                 f"bound {bounds[-1]}")
+    if worst != max(errors):
+        raise AssertionError(f"[model] the launcher's worst {worst} != {max(errors)}")
+    del cards
+    log(f"[model] prefill {prefill_ms:.3f} ms ({ns.batch} x {ns.prompt_len} tokens); trunk "
+        f"per decode step {[round(t, 3) for t in trunk_ms]} ms; {steps} steps in "
+        f"{decode_s:.2f} s (without the {replay_check['seconds']:.2f} s of the replay check)")
+    for rec in replay_check["launches"]:
+        slices = f" in column slices of {rec['plain_cols']}" if rec["plain_cols"] else ""
+        log(f"[model replay 0] {rec['site']:12s} {rec['shape']:44s} exact against plain"
+            f"{slices}; non-zero a {rec['nonzero_a']:.4f}, b {rec['nonzero_b']:.4f}, out "
+            f"{rec['nonzero_out']:.6f}")
+    log(f"[model] private head on {ns.workers} workers (PlanConfig() = AGE s=t=2, z=1; "
+        f"n_total {eng._session.plan.n_total}): every step served, none shed; each replay's "
+        f"field values exact against the card's float64 product; scales {scales}, encoded "
+        f"head non-zero {nonzero}; max |logit - x W| {[f'{e:.4e}' for e in errors]} <= bound "
+        f"{[f'{b:.4e}' for b in bounds]}; launcher's worst {worst:.4e}; " + json.dumps(summary))
+    for i, split in enumerate(splits):
+        log(f"[model time] replay {i}: " + json.dumps(split))
+    log(f"[model] launches by compiled kernel {by_kernel}; by shape "
+        f"{json.dumps({n: {str(sh): c for sh, c in v.items()} for n, v in shapes.items()})}; "
+        f"peak allocated {peak} bytes ({peak / 2**30:.2f} GiB) over the trunk steps and "
+        f"replays 1-{len(splits) - 1}; {replay_check['peak']} bytes "
+        f"({replay_check['peak'] / 2**30:.2f} GiB) through the prefill, replay 0 and its check "
+        "(replay 0's operands held)")
+    plan = eng._session.plan
+    del model, hidden_step, engines, eng, report, cache, logits
+    torch.cuda.empty_cache()
+    return {"plan": plan, "counts": shapes, "summary": summary, "splits": splits,
+            "prefill_ms": prefill_ms, "trunk_ms": trunk_ms, "init_s": init_s, "peak": peak,
+            "block": block, "errors": errors, "bounds": bounds,
+            "replay_check": replay_check["launches"]}
+
+
+def model_replay_check(torch, ref, captured: list, plan) -> list:
+    """The first lm-head replay's own launches (a, b, out, variant), each
+    held against the plain version on its own operands, in column slices
+    of at most ``REPLAY_SLICE_ELEMS`` elements of b or out.  The encoded
+    head is zero at k = 5120 (ROADMAP C8), but every share carries the
+    z = 1 random noise, so these operands are not, and neither are the
+    outputs of every site but H2 mix: a kernel that returned zeros, or
+    wrong values, fails here where the decoded field values would still
+    be exact.  Raises unless each H site launched once, agreed exactly,
+    had operands other than zero and an output (H2 mix: a b) at least
+    half non-zero.  Returns a record per site."""
+    names = {geometry(sa, sb): site for site, (sa, sb) in model_sites(plan).items()}
+    shapes = [geometry(tuple(a.shape), tuple(b.shape)) for a, b, _, _ in captured]
+    if sorted(shapes) != sorted(names):
+        raise AssertionError(f"[model replay 0] launches at {shapes}, expected {sorted(names)}")
+    records = []
+    for (a, b, out, variant), shape in zip(captured, shapes):
+        n = shape[-1]
+        cols = max(1, REPLAY_SLICE_ELEMS * n // max(b.numel(), out.numel()))
+        err = plain_error(torch, ref, variant, a, b, out, cols)
+        cols = cols if cols < n else 0
+        frac = {f"nonzero_{k}": float(torch.count_nonzero(x)) / x.numel()
+                for k, x in (("a", a), ("b", b), ("out", out))}
+        site = names[shape]
+        # H2 mix keeps only the coefficients of the workers' products that
+        # carry A W: zero while the head encodes to zero; its b, the
+        # products themselves, must not be
+        live = frac["nonzero_b"] if site == "H2 mix" else frac["nonzero_out"]
+        if err or not frac["nonzero_a"] or not frac["nonzero_b"] or live < 0.5:
+            raise AssertionError(f"[model replay 0] {site}: max abs error {err} against "
+                                 f"plain, {frac}")
+        records.append({"site": site, "shape": f"{list(a.shape)}@{list(b.shape)}",
+                        "max_abs_err": err, "plain_cols": cols, **frac})
+    torch.cuda.synchronize()
+    return records
+
+
+def model_sites(plan) -> dict:
+    """Launch sites of one lm-head replay (one request): those of
+    ``run_batch_over_pool`` (B) at batch 1 on the head engine's plan,
+    named H."""
+    return {"H" + name[1:]: shapes for name, shapes in edge_sites(plan, 1).items()
+            if name.startswith("B")}
+
+
+def model_entries(torch, K, ref, model_run: dict, args) -> list:
+    """The lm-head replays' launch sites for the ``kernels`` line (the
+    ``[model]`` phase asserted their launches shape by shape), each timed
+    and held against its plain version, in column slices where the output
+    has more than ``PLAIN_SLICE_ELEMS`` elements."""
+    plan, counts = model_run["plan"], model_run["counts"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 10)
+    entries = []
+    for site, (sa, sb) in model_sites(plan).items():
+        b_, m_, _, n_ = shape = geometry(sa, sb)
+        compiled = f"int32_{K.choose_design('int32', False, *shape)}"
+        cols = PLAIN_COLS if b_ * m_ * n_ > PLAIN_SLICE_ELEMS else 0
+        entries.append(measure_site(torch, K, ref, gen, "modmatmul_int32", "int32", False, site,
+                                    sa, sb, plan.scheme.z, counts[compiled][shape], args,
+                                    plain_cols=cols))
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1483,10 +1831,12 @@ def main() -> int:
                             scheduler, args)
     crt_run = phase_crt(torch, K, layers, protocol, planner, constructions, gf, ops, args)
     fuzz_run = phase_fuzz(K, fuzz, args)
+    model_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
     entries += site_entries(torch, K, ref, f32_run, "f32", args)
     entries += edge_entries(torch, K, ref, edge_run, args)
     entries += serve_entries(torch, K, ref, serve_run, args)
+    entries += model_entries(torch, K, ref, model_run, args)
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"kernel {name} was not launched on its path")
@@ -1494,13 +1844,15 @@ def main() -> int:
     on_path |= {n for counts in edge_run["counts"].values() for n in counts}
     on_path |= {n for run in serve_run["runs"].values() for n in run["counts"]}
     on_path |= {n for run in crt_run.values() for n in run["launches"]}
+    on_path |= set(model_run["counts"])
     for name in on_path:
         if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"compiled kernel {name} was not launched on its path")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
         f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes; "
-        f"serve peak {serve_run['peak']} bytes; fuzz {fuzz_run['cases']} cases clean")
+        f"serve peak {serve_run['peak']} bytes; fuzz {fuzz_run['cases']} cases clean; "
+        f"model peak {model_run['peak']} bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

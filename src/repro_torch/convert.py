@@ -13,15 +13,24 @@ the port's ``DevicePlan``.
 A ``WorkerTrace`` is the edge runtime's input: given the same trace,
 both packages' schedulers produce the same timelines, subsets and
 metrics.  ``worker_trace_from_reference`` builds the port's trace from
-the reference's fields.  This module reads numpy only.
+the reference's fields.
+
+A model's weights and KV caches carry across by name:
+``decoder_params_from_reference`` turns the reference's parameter tree
+(numpy arrays) into a state dict for the port's ``Model``
+(``model.load_state_dict``), and ``decoder_cache_from_reference`` its
+cache tree into the port's.  This module reads numpy only.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.protocol import CONST_FIELDS, INDEX_FIELDS, DevicePlan, device_plan_from_arrays
+from .models import lm
+from .models.common import iter_leaves
 from .runtime.pool import FaultSpec, WorkerTrace
 
 FIELDS = CONST_FIELDS + INDEX_FIELDS
@@ -90,3 +99,47 @@ def worker_trace_from_reference(fields: dict) -> WorkerTrace:
         ),
         fault_model=None if fm is None else FaultSpec(**fm),
     )
+
+
+def _check_names(what: str, got: dict, want: dict) -> None:
+    if set(got) != set(want):
+        raise ValueError(
+            f"{what}: missing {sorted(set(want) - set(got))}, "
+            f"unknown {sorted(set(got) - set(want))}"
+        )
+    for name, spec in want.items():
+        if tuple(got[name].shape) != tuple(spec.shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(got[name].shape)}, want {spec.shape}")
+
+
+def decoder_params_from_reference(cfg, params: dict) -> dict:
+    """A state dict for the port's dense ``Model`` of ``cfg`` from the
+    reference's parameter tree (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``): dotted names, float32 CPU
+    tensors; ``load_state_dict`` casts each into the dtype the model
+    keeps it in.  Raises ``ValueError`` on a missing, unknown or
+    misshapen weight."""
+    got = {name: np.array(x, np.float32) for name, x in iter_leaves(params)}
+    _check_names("reference parameters", got, dict(iter_leaves(lm.decoder_abstract(cfg))))
+    return {name: torch.from_numpy(x) for name, x in got.items()}
+
+
+def decoder_cache_from_reference(cfg, caches: dict) -> dict:
+    """The port's cache tree on the CPU from the reference's (numpy
+    arrays: bfloat16 K/V buffers as float32 or as ml_dtypes bfloat16,
+    int32 write positions), each leaf in the port's cache dtype.  Raises
+    ``ValueError`` on a missing, unknown or misshapen leaf."""
+    k = np.asarray(caches["layers"]["k"])
+    spec = dict(iter_leaves(lm.decoder_cache_abstract(cfg, k.shape[1], k.shape[2])))
+    got = dict(iter_leaves(caches))
+    _check_names("reference caches", got, spec)
+    out: dict = {}
+    for name, x in got.items():
+        dtype = spec[name].dtype
+        host = np.array(x, np.float32 if dtype.is_floating_point else np.int64)
+        node = out
+        *parents, leaf = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.from_numpy(host).to(dtype)
+    return out

@@ -1,0 +1,168 @@
+"""Serving launcher: batched prefill + greedy decode of a dense decoder.
+
+    python -m repro_torch.launch.serve --arch mistral-nemo-12b --reduced \\
+        --batch 4 --prompt-len 32 --gen-len 32 [--private-head] [--device cpu]
+
+The counterpart of ``repro.launch.serve``, with its flags, prompts,
+traces and printed lines.  ``--private-head`` keeps the transformer
+trunk local but routes every decode step's lm-head matmul
+(``hidden @ W_head``) through the CMPC serving engine: the head matrix
+stays the layer owner's private operand, each step's hidden states are
+a request against it, and the reported latencies are the engine's
+simulated protocol time.
+
+``--device`` picks the device (default: the GPU; ``cpu`` on request).
+The port runs on one device: ``--mesh`` takes ``elastic`` or ``1x1``,
+both meaning that device; a mesh of several waits for the sharded path
+(ROADMAP item 11).  Only the dense decoder is ported (ROADMAP item 12).
+"""
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config, reduced as reduce_cfg
+from ..core.protocol import resolve_device
+from ..models import build_model
+
+ONE_DEVICE_MESHES = ("elastic", "1x1")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--mesh", default="elastic")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument(
+        "--private-head", action="store_true",
+        help="run each decode step's lm-head matmul under CMPC via the "
+        "serving engine (decoder families only)",
+    )
+    ap.add_argument(
+        "--workers", type=int, default=16,
+        help="simulated edge pool size for --private-head",
+    )
+    ap.add_argument("--device", default=None, help="the device (default: the GPU)")
+    args = ap.parse_args(argv)
+
+    if args.mesh not in ONE_DEVICE_MESHES:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the port runs on one device ({' or '.join(ONE_DEVICE_MESHES)}); "
+            "a mesh of several devices waits for the sharded path (ROADMAP item 11)"
+        )
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    device = resolve_device(args.device)
+    model = build_model(cfg, seed=0, device=device)
+    print(f"serving {args.arch} on {device} (one device)")
+
+    max_len = args.prompt_len + args.gen_len
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    cache = model.init_cache(args.batch, max_len)
+
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    _sync(device)
+    t_pre = time.perf_counter() - t0
+
+    tok = argmax_last(logits, cfg.vocab_size)
+    t0 = time.perf_counter()
+    if args.private_head:
+        steps, report, worst = _decode_private_head(args, cfg, model, cache, tok)
+    else:
+        steps = 0
+        for i in range(args.gen_len - 1):
+            pos = np.full((args.batch, 1), args.prompt_len + i, np.int32)
+            logits, cache = model.decode_step(tok[:, None], cache, pos)
+            tok = argmax_last(logits, cfg.vocab_size)
+            steps += 1
+        _sync(device)
+    dt = time.perf_counter() - t0
+    print(f"prefill: {t_pre * 1e3:.1f} ms for {args.prompt_len} x {args.batch} tokens")
+    print(f"decode : {dt / max(steps, 1) * 1e3:.2f} ms/step (batch {args.batch})")
+    if args.private_head:
+        s = report.summary()
+        print(
+            f"private head: {s['replays']} protocol replays over {steps} steps "
+            f"on {args.workers} workers, sim latency p50 {s['p50_latency']:.3f}s "
+            f"p95 {s['p95_latency']:.3f}s, max |logit err| {worst:.3e}"
+        )
+
+
+def _decode_private_head(args, cfg, model, cache, tok):
+    """Greedy decode with every step's lm-head matmul served by the
+    CMPC engine on the model's device.  Rows / head columns / the
+    contraction dim are zero-padded up to the construction's
+    divisibility (s | k, t | rows, t | out); zero padding contributes
+    zero in the field, so the sliced logits are the exact fixed-point
+    head product.  Returns (steps, the engine's report, the worst
+    |logit - x @ W| over the steps)."""
+    from ..core.constructions import PlanConfig
+    from ..runtime.pool import ShiftedExponential, sample_trace
+    from ..serve import ServingEngine
+
+    w = model.head_matrix().cpu().numpy().astype(np.float64)  # [d_model, vocab]
+    plan_cfg = PlanConfig()
+    k, vocab = w.shape
+    pad_k = (-k) % plan_cfg.s
+    pad_out = (-vocab) % plan_cfg.t
+    pad_rows = (-args.batch) % plan_cfg.t
+    traces = [
+        sample_trace(args.workers, ShiftedExponential(0.1, 0.5), seed=s, net_scale=0.3)
+        for s in range(4)
+    ]
+    engine = ServingEngine(
+        np.pad(w, ((0, pad_k), (0, pad_out))), traces, plan_cfg, seed=0, device=model.device
+    )
+    arrival, worst, steps = 0.0, 0.0, 0
+    for i in range(args.gen_len - 1):
+        pos = np.full((args.batch, 1), args.prompt_len + i, np.int32)
+        hidden, cache = model.hidden_step(tok[:, None], cache, pos)
+        x = hidden[:, -1, :].float().cpu().numpy().astype(np.float64)
+        # The next head matmul cannot be requested before the previous
+        # token is known: arrivals chain on completions.
+        req = engine.submit(np.pad(x, ((0, pad_rows), (0, pad_k))), arrival)
+        engine.run()
+        if req.y is None:
+            raise SystemExit(
+                f"step {i}: request shed ({req.shed_reason}); a pool of "
+                f"{args.workers} workers cannot serve the head — raise --workers"
+            )
+        logits = req.y[: args.batch, :vocab]
+        worst = max(worst, float(np.abs(logits - x @ w).max()))
+        tok = logits.argmax(-1).astype(np.int32)
+        arrival = req.completion
+        steps += 1
+    return steps, engine.report(), worst
+
+
+def head_error_bound(x: np.ndarray, w: np.ndarray, scale: int) -> float:
+    """The most a served logit can differ from ``x @ w`` when both are
+    quantised at ``scale`` (``Field.encode`` rounds to the nearest
+    1/scale, so each entry moves by at most 1/(2 scale)): per output,
+    sum_k |x_k| |dw_k| + |w_k| |dx_k| + |dx_k dw_k|, at most
+    (max row of ||x||_1 + max column of ||w||_1) / (2 scale) + k / (4 scale**2)."""
+    k = x.shape[-1]
+    spread = np.abs(x).sum(-1).max() + np.abs(w).sum(0).max()
+    return float(spread / (2 * scale) + k / (4 * scale**2))
+
+
+def argmax_last(logits: torch.Tensor, vocab: int) -> np.ndarray:
+    """Greedy tokens [B] (int32, on the host) from the last position's
+    logits over the real vocabulary."""
+    return logits[:, -1, :vocab].argmax(-1).to(torch.int32).cpu().numpy()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,220 @@
+"""Decoder-only language models.
+
+The counterpart of the decoder-only half of ``repro.models.lm``, for the
+dense family.  The trunk's parameters are *stacked* along a leading
+``layers`` axis as in the reference, so its weights carry across one to
+one; caches are stacked the same way.
+
+Deliberate differences:
+
+* ``_trunk`` is a Python loop over the stacked layers.  The reference
+  scans them (``scan_layers``) under a remat policy (``remat_policy``);
+  on one device and without gradients both change only how JAX compiles
+  the program, so here they have no effect.
+* ``stored_infos`` keeps each weight that the reference casts to
+  ``compute_dtype`` before every use in that dtype (the forward computes
+  the same numbers from half the bytes); ``lm_head`` and a tied
+  ``embed`` stay float32, as ``head_matrix`` reads them.
+
+The reference's ``constrain`` calls are dropped (no-ops without sharding
+rules).  ``decoder_loss`` waits for training (ROADMAP item 13); MoE,
+MLA, vlm and encoder-decoder for their models (item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .attention import gqa_attention, gqa_cache_spec, gqa_params
+from .common import ParamInfo, ShapeDtype, iter_leaves, map_tree, rms_norm
+from .ffn import mlp, mlp_params
+
+
+def _not_ported(cfg: ModelConfig) -> None:
+    if cfg.moe or cfg.mla or cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r}"
+            + (" with MoE" if cfg.moe else "") + (" with MLA" if cfg.mla else "")
+            + " is not ported yet (ROADMAP item 12); only the dense decoder is"
+        )
+
+
+def stack_infos(tree, n: int):
+    return map_tree(
+        lambda _, i: ParamInfo((n,) + i.shape, ("layers",) + i.axes, i.init, i.dtype), tree
+    )
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+# ----------------------------------------------------------------------
+# decoder-only block
+# ----------------------------------------------------------------------
+def _block_infos(cfg: ModelConfig) -> Dict[str, Any]:
+    _not_ported(cfg)
+    d = cfg.d_model
+    return {
+        "ln_attn": ParamInfo((d,), ("embed",), init="ones"),
+        "ln_mlp": ParamInfo((d,), ("embed",), init="ones"),
+        "attn": gqa_params(cfg),
+        "mlp": mlp_params(d, cfg.d_ff),
+    }
+
+
+def _scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A 0-d CPU tensor: the reference's ``jnp.asarray(value, dtype)``,
+    rounded to ``dtype`` as there; usable with tensors on any device."""
+    return torch.tensor(value, dtype=dtype)
+
+
+def _block_apply(
+    cfg: ModelConfig,
+    p: Dict[str, Any],
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    res_scale = _scalar(cfg.scale_residual, x.dtype)
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    attn_out, new_cache = gqa_attention(p["attn"], h, positions, cfg, cache=cache)
+    x = x + attn_out * res_scale
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    x = x + mlp(p["mlp"], h) * res_scale
+    return x, new_cache
+
+
+# ----------------------------------------------------------------------
+# decoder-only model
+# ----------------------------------------------------------------------
+def decoder_abstract(cfg: ModelConfig) -> Dict[str, Any]:
+    d, v = cfg.d_model, cfg.padded_vocab
+    params: Dict[str, Any] = {
+        "embed": ParamInfo((v, d), ("vocab", "embed"), init="embed"),
+        "final_norm": ParamInfo((d,), ("embed",), init="ones"),
+        "layers": stack_infos(_block_infos(cfg), cfg.num_layers),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ParamInfo((d, v), ("embed", "vocab"))
+    return params
+
+
+def stored_infos(cfg: ModelConfig, infos: Dict[str, Any]) -> Dict[str, Any]:
+    """``infos`` with the dtype each weight is kept in: ``compute_dtype``
+    for every weight the reference casts to it before each use (the
+    attention and MLP matrices, the norm weights, an untied ``embed``),
+    float32 for ``lm_head`` and a tied ``embed``."""
+    dt = compute_dtype(cfg)
+    keep = {"lm_head"} | ({"embed"} if cfg.tie_embeddings else set())
+    return map_tree(lambda name, i: i if name in keep else dataclasses.replace(i, dtype=dt), infos)
+
+
+def _trunk(
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    caches: Optional[Dict] = None,
+):
+    """Run all blocks: a loop over the stacked ``layers`` axis (the
+    reference's scan; ``scan_layers`` and ``remat_policy`` have no
+    effect here).  The caches are copied once, and each layer writes its
+    tokens into its slice of the copy: the caller's are left as they
+    were."""
+    stacked = params["layers"]
+    n = next(iter_leaves(stacked))[1].shape[0]
+    new_caches = None
+    if caches is not None:
+        new_caches = dict(caches, layers={k: c.clone() for k, c in caches["layers"].items()})
+    for i in range(n):
+        pl = map_tree(lambda _, a: a[i], stacked)
+        cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
+        x, _ = _block_apply(cfg, pl, x, positions, cl)
+    return x, new_caches
+
+
+def _head(cfg: ModelConfig, params) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(cfg: ModelConfig, params, x, head_mode: str = "full"):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if head_mode == "none":
+        return x
+    if head_mode == "last":
+        x = x[:, -1:]
+    dt = x.dtype
+    return (x @ _head(cfg, params).to(dt)) * _scalar(cfg.logit_scale, dt)
+
+
+def _embed_tokens(cfg: ModelConfig, params, tokens, dtype):
+    x = params["embed"][tokens].to(dtype)
+    return x * _scalar(cfg.scale_emb, dtype)
+
+
+def decoder_forward(
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    batch: Dict[str, Any],
+    caches: Optional[Dict] = None,
+    positions=None,
+    head_mode: str = "full",
+):
+    """Returns (logits | hidden, new_caches); the reference's third
+    value, the MoE auxiliary loss, comes with MoE.  ``batch["tokens"]``
+    and ``positions`` may be numpy arrays or tensors; they move to the
+    parameters' device."""
+    _not_ported(cfg)
+    dt = compute_dtype(cfg)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    x = _embed_tokens(cfg, params, tokens, dt)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
+    else:
+        positions = torch.as_tensor(positions, device=dev)
+    x, new_caches = _trunk(cfg, params, x, positions, caches)
+    return _logits(cfg, params, x, head_mode), new_caches
+
+
+def decoder_cache_abstract(cfg: ModelConfig, batch: int, max_len: int):
+    _not_ported(cfg)
+    per_layer = gqa_cache_spec(cfg, batch, max_len)
+    return {
+        "layers": {k: ShapeDtype((cfg.num_layers,) + s.shape, s.dtype) for k, s in per_layer.items()}
+    }
+
+
+def decoder_decode_step(cfg: ModelConfig, params, tokens, caches, positions):
+    """One decode step: tokens [B, 1]; positions [B, 1] absolute."""
+    return decoder_forward(cfg, params, {"tokens": tokens}, caches=caches, positions=positions)
+
+
+def decoder_prefill(cfg: ModelConfig, params, batch, caches):
+    """Prefill: write the prompt into the caches, return last logits."""
+    return decoder_forward(cfg, params, batch, caches=caches, head_mode="last")
+
+
+def decoder_hidden_step(cfg: ModelConfig, params, tokens, caches, positions):
+    """One decode step stopping at the final-normed hidden state
+    (``head_mode="none"``): tokens [B, 1] -> hidden [B, 1, d_model].
+
+    The private-inference split point: the public trunk runs on the
+    device up to here, and the lm-head matmul — the part multiplying the
+    *private* head matrix — routes through the CMPC serving engine
+    (``hidden @ head_matrix``) instead of the local ``_logits`` path.
+    """
+    return decoder_forward(
+        cfg, params, {"tokens": tokens}, caches=caches, positions=positions, head_mode="none",
+    )
+
+
+def head_matrix(cfg: ModelConfig, params) -> torch.Tensor:
+    """The lm-head weight [d_model, vocab] with ``logit_scale`` folded
+    in, so ``hidden @ head_matrix(cfg, params)`` equals the full-head
+    logits — the private source-2 operand the serving engine holds."""
+    return _head(cfg, params) * _scalar(cfg.logit_scale, torch.float32)

@@ -1,23 +1,31 @@
 """The port on the card: each CUDA kernel against its plain version, and
 the batched engine, the edge runtime, the serving engine and the CRT
 route through the kernels against the same entry points on the CPU; the
-fuzz harness on the kernel engines, and ``autotune_tiles``.
+fuzz harness on the kernel engines, and ``autotune_tiles``; the reduced
+dense decoder and the launcher's private head on the card against the
+CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports torch, numpy and the port only, so it runs on a machine without
 JAX:  ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import argparse
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import runtime, serve
+from repro_torch import configs, runtime, serve
 from repro_torch.core import constructions, gf, layers, planner, protocol
 from repro_torch.kernels.modmatmul import fuzz
 from repro_torch.kernels.modmatmul import kernel as K
 from repro_torch.kernels.modmatmul import ops, ref
+from repro_torch.launch import serve as launcher
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -364,3 +372,81 @@ def test_autotune_tiles_on_the_card(cuda, backend, shape, monkeypatch):
             for s in ((m, k), (k, n)))
     assert torch.equal(ops.mod_matmul(a, b, backend=backend).cpu(),
                        ref.PLAIN["int32"](a.cpu(), b.cpu(), P))
+
+
+# the reduced dense decoder, card against CPU on one set of weights.
+# float32: the card's float32 matmuls (TF32 off, PyTorch's default) sum
+# in another order than the CPU's, as tests/test_torch_models.py allows
+# between the packages; bfloat16: the card and the CPU round products
+# and sums to bfloat16 at other points, 2**-5 of the largest value.
+MODEL_TOL = {"float32": lambda ref: 2e-4, "bfloat16": lambda ref: 2.0**-5 * ref.abs().max().item()}
+
+
+def _model_pair(cuda, dtype):
+    cfg = dataclasses.replace(configs.reduced(configs.get_config("mistral-nemo-12b")),
+                              compute_dtype=dtype)
+    cpu = build_model(cfg, seed=5, device="cpu")
+    card = build_model(cfg, seed=6, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_model_on_the_card_equals_the_cpu_run(cuda, dtype):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card = _model_pair(cuda, dtype)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        logits, cache = model.prefill({"tokens": prompts}, model.init_cache(2, 11))
+        tok = prompts[:, -1:]
+        steps = []
+        for i in range(3):
+            pos = np.full((2, 1), 8 + i, np.int32)
+            hidden, cache = model.hidden_step(tok, cache, pos)
+            steps.append(hidden.float().cpu())
+        out[name] = (logits.float().cpu(), steps, {k: v.float().cpu() for k, v in cache["layers"].items()})
+    (lc, hc, cc), (lg, hg, cg) = out["cpu"], out["card"]
+    tol = MODEL_TOL[dtype]
+    assert (lg - lc).abs().max().item() <= tol(lc)
+    for a, b in zip(hc, hg):
+        assert (b - a).abs().max().item() <= tol(a)
+    assert torch.equal(cc["idx"], cg["idx"])
+    for k in ("k", "v"):
+        if dtype == "float32":  # float32 K/V rounded into bfloat16 buffers: one ulp apart
+            assert ((cg[k] - cc[k]).abs() <= 2.0**-7 * cc[k].abs() + 1e-6).all()
+        else:  # K/V computed in bfloat16: the compute tolerance
+            assert (cg[k] - cc[k]).abs().max().item() <= tol(cc[k])
+
+
+def test_private_head_on_the_card_equals_the_cpu_run(cuda):
+    """The launcher's private-head decode at the reduced width with
+    float32 compute: the same tokens and engine summary on the card as
+    on the CPU, every step served."""
+    cfg, cpu, card = _model_pair(cuda, "float32")
+    args = argparse.Namespace(batch=2, prompt_len=8, gen_len=4, workers=16)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        logits, cache = model.prefill({"tokens": prompts}, model.init_cache(2, 12))
+        tok = launcher.argmax_last(logits, cfg.vocab_size)
+        steps, report, worst = launcher._decode_private_head(args, cfg, model, cache, tok)
+        out[name] = (tok, steps, report.summary(),
+                     [r.y[:2].argmax(-1) for r in report.requests])
+    assert out["card"][2]["served"] == out["card"][1] == 3
+    np.testing.assert_array_equal(out["card"][0], out["cpu"][0])
+    assert out["card"][1:3] == out["cpu"][1:3]
+    for a, b in zip(out["card"][3], out["cpu"][3]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_launcher_private_head_runs_on_the_card(cuda):
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mistral-nemo-12b",
+         "--reduced", "--private-head", "--batch", "2", "--prompt-len", "8", "--gen-len", "4"],
+        capture_output=True, text=True, timeout=600, cwd=".",
+        env=dict(os.environ, PYTHONPATH="src"),
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "on cuda" in res.stdout
+    assert "private head: 3 protocol replays over 3 steps on 16 workers" in res.stdout
