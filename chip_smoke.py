@@ -95,11 +95,31 @@ Phases (each raises on failure; the exit code is then not 0):
              trunk ms per step (CUDA events), each replay's wall split as
              ``[serve time]`` splits it, the simulated p50/p95, the peak
              device memory and the launches per compiled kernel;
-10. timing — each kernel at each launch site of its paths (the
+10. sharded — the sharded Phase 2 (``repro_torch.core.distributed``) at
+             the main path's width: a one-rank NCCL group from a
+             ``HashStore`` and its ``workers`` mesh on the card;
+             ``run_batched_sharded`` in all_to_all, psum and psum_scatter
+             on ``auto`` and in all_to_all on ``backend="cuda"`` (Y exact
+             against the float64 oracle, the launches by shape at the X
+             sites: X1 shares, X2 the per-shard multiply on ``int32_mma``
+             / ``f32_wgmma``, X3 decode; CUDA-event median of ``--reps``,
+             peak device memory, a ``[sharded time]`` split), once with
+             a Phase-2 sender and a Phase-3 responder subset over 3
+             spares; ``run_phase2_sharded``'s I in every mode equal to
+             the dense Phase 2 (mix^T H + vnoise R_sum through the plain
+             versions) on the same shares and per-worker noise;
+             ``run_batch_over_pool(mesh=...)`` in correct mode on the
+             [edge] pool and trace rule (Y exact, worker 1 corrected);
+             a ``ServingEngine(mesh=...)`` stream of 4 [serve] requests
+             (every y exact); then 4 gloo ranks sharing the card (n_total
+             17 padded to 20): every rank's Y exact in every mode and its
+             I equal to the dense Phase 2's;
+11. timing — each kernel at each launch site of its paths (the
              ``run_batched`` sites, the edge runtime's, a serving
              replay's at n_total 21 and one request, and an lm-head
-             replay's, H, at n_total 16; the plain version of the
-             10.7 GB H1 share B in column slices): exact against the
+             replay's, H, at n_total 16, and any shape the sharded
+             phase launched that no other site has; the plain version
+             of the 10.7 GB H1 share B in column slices): exact against the
              plain version, CUDA-event time, device time of launches
              queued back to back (behind a busy-wait kernel), plain
              version, bound, library call, design; printed as one JSON
@@ -397,18 +417,24 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_batched_ms(torch, protocol, plan, a, b, *, backend, fused, seed, reps) -> float:
-    """Median CUDA-event ms of ``reps`` calls of run_batched."""
+def median_event_ms(torch, fn, reps: int) -> float:
+    """Median CUDA-event ms of ``reps`` calls of ``fn``, each timed alone."""
     ms = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        protocol.run_batched(plan, a, b, seed=seed, backend=backend, fused_masks=fused)
+        fn()
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
     return statistics.median(ms)
+
+
+def run_batched_ms(torch, protocol, plan, a, b, *, backend, fused, seed, reps) -> float:
+    """Median CUDA-event ms of ``reps`` calls of run_batched."""
+    return median_event_ms(torch, lambda: protocol.run_batched(
+        plan, a, b, seed=seed, backend=backend, fused_masks=fused), reps)
 
 
 def main_operands(torch, planner, constructions, batch: int, k: int, seed: int):
@@ -880,7 +906,7 @@ SPLIT_TARGETS = (("protocol", "share_batched"), ("protocol", "share_a"),
                  ("protocol", "_blinding_sum"), ("scheduler", "_to_host"))
 
 
-def split_call(torch, modules: dict, fn) -> dict:
+def split_call(torch, modules: dict, fn, targets=SPLIT_TARGETS) -> dict:
     """One call of ``fn`` with the port's data-plane functions wrapped:
     each wrapper synchronizes the card and records CUDA events around the
     function.  The call's wall time splits into the device data plane
@@ -889,7 +915,10 @@ def split_call(torch, modules: dict, fn) -> dict:
     share preparation (block stacking, the secret draws and their upload,
     around the share evaluation), the blinding draw, the copy of the
     Phase-2 evaluations to the host, and the rest (event loop and
-    decode).  Each wrapper's two synchronizations are inside the wall."""
+    decode).  Each wrapper's two synchronizations are inside the wall.
+    ``targets`` may add the sharded path's functions: the exchange and the
+    device decode join the device data plane, the host's per-worker
+    blinding draw joins the blinding draw."""
     parts: dict = {}
     saved = []
 
@@ -911,7 +940,7 @@ def split_call(torch, modules: dict, fn) -> dict:
         return timed
 
     try:
-        for mod, attr in SPLIT_TARGETS:
+        for mod, attr in targets:
             f = getattr(modules[mod], attr)
             saved.append((modules[mod], attr, f))
             setattr(modules[mod], attr, wrap(attr, f))
@@ -927,13 +956,15 @@ def split_call(torch, modules: dict, fn) -> dict:
     def ev(name, key="event_ms"):
         return parts.get(name, {}).get(key, 0.0)
 
-    draw = ev("_blinding_sum", "wall_ms")
+    blind = ev("_blinding_sum", "wall_ms")
+    draw = blind + ev("_sender_noise", "wall_ms")
     # the batched share's polyeval is inside share_batched; the per-product
     # one is the device part of share_a / share_b
     per_product = "share_a" in parts
     prep = ev("share_a") + ev("share_b") - ev("polyeval") if per_product else 0.0
     device = (ev("share_batched") + (ev("polyeval") if per_product else 0.0)
-              + ev("worker_multiply") + ev("degree_reduce") - draw)
+              + ev("worker_multiply") + ev("degree_reduce") + ev("run_phase2_sharded")
+              + ev("_decode_batched") - blind)
     d2h = ev("_to_host", "wall_ms")
     host = wall - device
     return {
@@ -1785,6 +1816,396 @@ def model_entries(torch, K, ref, model_run: dict, args) -> list:
     return entries
 
 
+# ----------------------------------------------------------------------
+# phase 10: the sharded Phase 2
+# ----------------------------------------------------------------------
+SHARDED_MODES = ("all_to_all", "psum", "psum_scatter")
+# gloo ranks that share the one card in the d > 1 run (NCCL refuses two
+# ranks on one device)
+SHARDED_RANKS = 4
+SHARDED_SERVE_REQUESTS = 4
+X_SITES = ("X1 share A", "X1 share B", "X2 multiply", "X3 decode")
+# the split of a sharded call also times the exchange, the host's
+# per-worker blinding draw of the edge runtime's mesh path and the device
+# decode of run_batched_sharded
+SHARDED_SPLIT_TARGETS = SPLIT_TARGETS + (("distributed", "run_phase2_sharded"),
+                                         ("scheduler", "run_phase2_sharded"),
+                                         ("scheduler", "_sender_noise"),
+                                         ("protocol", "_decode_batched"))
+
+
+def sharded_sites(plan, batch: int, d: int) -> dict:
+    """Launch sites of ``run_batched_sharded`` on each of ``d`` ranks: X1
+    (the shares, P1's), X2 (the per-shard worker multiply of the rank's
+    npad / d workers, the batch folded in) and X3 (the decode, P3's)."""
+    sites = site_table(plan, batch)
+    npad = plan.n_total + (-plan.n_total) % d
+    nloc = npad // d
+    bra, bca = plan.shapes.blk_a
+    bcb = plan.shapes.blk_b[1]
+    return {"X1 share A": sites["P1 share A"], "X1 share B": sites["P1 share B"],
+            "X2 multiply": ((nloc * batch, bra, bca), (nloc * batch, bca, bcb)),
+            "X3 decode": sites["P3 decode"]}
+
+
+def dense_phase2(torch, ref, protocol, plan, fa, fb, noise):
+    """I of the dense Phase 2 on the same shares and per-worker noise,
+    through the plain versions on the card: mix^T H plus vnoise times the
+    senders' blinding matrices summed over the senders."""
+    plain = ref.PLAIN["int32"]
+    dp = protocol.device_plan(plan, fa.device)
+    batch = fa.shape[0]
+    h = plain(fa, fb, P)  # [batch, n_total, bry, bcy]
+    blk = h.shape[-2] * h.shape[-1]
+    i_mix = plain(dp.mix_t, h[:, : plan.n_workers].reshape(batch, plan.n_workers, blk), P)
+    r_sum = torch.remainder(noise.to(torch.int64).sum(1), P).to(torch.int32)
+    i_noise = plain(dp.vnoise, r_sum.reshape(batch, plan.scheme.z, blk), P)
+    return torch.remainder(i_mix.to(torch.int64) + i_noise, P).to(torch.int32).reshape(h.shape)
+
+
+def phase2_operands(torch, gf, protocol, plan, a, b, seed: int):
+    """The shares of (a, b) under key ``seed`` and per-worker noise
+    [batch, n_workers, z, bry, bcy] from ``seed``, on the card: the same
+    bits on every process that asks."""
+    fa, fb = protocol.share_batched(plan, a, b, gf.prng_key(seed))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    noise = gf.random_field_device(
+        gen, (a.shape[0], plan.n_workers, plan.scheme.z) + plan.shapes.blk_y, P, "cuda")
+    return fa, fb, noise
+
+
+def digest(x) -> str:
+    import hashlib
+
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def phase_sharded(torch, K, ref, protocol, distributed, planner, constructions, runtime,
+                  serve, scheduler, layers, gf, args) -> dict:
+    """Phase 10 on a one-rank NCCL group, then on SHARDED_RANKS gloo ranks
+    sharing the card (``sharded_ranks``)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = distributed.workers_mesh("cuda")
+        out = sharded_one_rank(torch, K, ref, protocol, distributed, planner, constructions,
+                               runtime, serve, scheduler, layers, gf, mesh, args)
+    finally:
+        dist.destroy_process_group()
+    if SHARDED_RANKS > 1:
+        out["ranks"] = sharded_ranks(torch, K, out, args)
+    return out
+
+
+def sharded_one_rank(torch, K, ref, protocol, distributed, planner, constructions, runtime,
+                     serve, scheduler, layers, gf, mesh, args) -> dict:
+    import numpy as np
+
+    batch, k = args.batch, 5120
+    plan, a, b, want = main_operands(torch, planner, constructions, batch, k, args.seed + 11)
+    plan20 = planner.get_plan(constructions.build_scheme("age", 2, 2, 2),
+                              planner.BlockShapes(k=k, ma=512, mb=4096, s=2, t=2), n_spare=3)
+    import torch.distributed as dist
+
+    log(f"[sharded] one-rank {dist.get_backend(mesh.get_group('workers'))} group, mesh "
+        f"{mesh.mesh_dim_names} on {mesh.device_type}; AGE s=t=z=2, n_total={plan.n_total} "
+        f"(npad {plan.n_total} at d = 1); a [{batch}, {k}, 512], b [{batch}, {k}, 4096]")
+    counts: collections.Counter = collections.Counter()
+    sites_of: dict = {}  # (compiled, shape) -> (site, a shape, b shape, variant)
+    times: dict = {}
+    modules = {"protocol": protocol, "scheduler": scheduler, "distributed": distributed}
+
+    def note(tag, sites, names, variant, expect=None):
+        """The launches since the counts were zeroed, exactly those of the
+        sites ``names`` (or ``expect``); added to the phase's counts."""
+        got = launched_shapes(K)
+        expect = expect if expect is not None else expected_shapes(K, sites, names, variant)
+        if got != expect:
+            raise AssertionError(f"[{tag}] launches {got}, expected {expect}")
+        for compiled, shapes in got.items():
+            for shape, n in shapes.items():
+                counts[(compiled, shape)] += n
+        for site in names:
+            sa, sb = sites[site]
+            shape = geometry(sa, sb)
+            sites_of.setdefault((f"{variant}_{K.choose_design(variant, False, *shape)}", shape),
+                                (site, sa, sb, variant))
+        return got
+
+    def check_y(y, y_want, tag):
+        y = y if isinstance(y, np.ndarray) else y.cpu().numpy()
+        if y.shape != y_want.shape or not np.array_equal(y, y_want):
+            raise AssertionError(f"[{tag}] Y differs from the float64 oracle")
+
+    want_h = want.cpu().numpy()
+    peaks = {}
+    for backend, variant, modes in (("auto", "int32", SHARDED_MODES), ("cuda", "f32", ("all_to_all",))):
+        xsites = sharded_sites(plan, batch, 1)
+        deep = geometry(*xsites["X2 multiply"])
+        wanted = {"int32": "mma", "f32": "wgmma"}[variant]
+        if K.choose_design(variant, False, *deep) != wanted:
+            raise AssertionError(f"the per-shard multiply {deep} is not sent to {variant}_{wanted}")
+        for mode in modes:
+            tag = f"sharded {mode} {backend}"
+            call = lambda: protocol.run_batched_sharded(  # noqa: E731
+                plan, a, b, mesh, mode=mode, seed=args.seed, backend=backend)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            y, _ = call()
+            torch.cuda.synchronize()
+            peaks[tag] = torch.cuda.max_memory_allocated()
+            got = note(tag, xsites, X_SITES, variant)
+            check_y(y, want_h, tag)
+            del y
+            times[tag] = {"median_ms": round(median_event_ms(torch, call, args.reps), 3),
+                          "peak_bytes": peaks[tag],
+                          "split": split_call(torch, modules, call, SHARDED_SPLIT_TARGETS)}
+            log(f"[{tag}] Y exact; launches {json.dumps({n: {str(s): c for s, c in v.items()} for n, v in got.items()})}; "
+                f"peak allocated {peaks[tag]} bytes ({peaks[tag] / 2**30:.2f} GiB)")
+            log(f"[sharded time] {tag}: " + json.dumps(times[tag]))
+
+    # a Phase-2 sender subset and a Phase-3 responder subset (3 spares)
+    tag = "sharded subsets"
+    ids2 = np.array([i for i in range(plan20.n_total) if i not in (0, 2)])[: plan20.n_workers]
+    ids3 = np.arange(2, 2 + plan20.decode_threshold)
+    K.reset_launch_counts()
+    y, _ = protocol.run_batched_sharded(plan20, a, b, mesh, mode="psum_scatter", seed=args.seed,
+                                        phase2_ids=ids2, phase3_ids=ids3)
+    torch.cuda.synchronize()
+    note(tag, sharded_sites(plan20, batch, 1), X_SITES, "int32")
+    check_y(y, want_h, tag)
+    del y
+    log(f"[{tag}] n_total {plan20.n_total}, senders {ids2.tolist()}, responders "
+        f"{ids3.tolist()}, psum_scatter: Y exact")
+
+    # the exchange against the dense Phase 2 on the same shares and noise
+    fa, fb, noise = phase2_operands(torch, gf, protocol, plan, a, b, args.seed + 12)
+    i_dense = dense_phase2(torch, ref, protocol, plan, fa, fb, noise)
+    dense_digest = digest(i_dense)
+    for mode in SHARDED_MODES:
+        i_sh = distributed.run_phase2_sharded(plan, fa, fb, noise, mesh, mode=mode)
+        if not torch.equal(i_sh, i_dense):
+            raise AssertionError(f"[sharded phase2] {mode}: I differs from the dense Phase 2 "
+                                 f"in {int((i_sh != i_dense).sum())} entries")
+        del i_sh
+    log(f"[sharded phase2] run_phase2_sharded == dense mix^T H + vnoise R_sum (plain versions) "
+        f"in {list(SHARDED_MODES)}: I {list(i_dense.shape)}, digest {dense_digest}")
+    del fa, fb, noise, i_dense
+    torch.cuda.empty_cache()
+
+    # the edge runtime's mesh path: the [edge] pool and trace rule, correct mode
+    trace, tseed = edge_trace(runtime, plan20, args.seed)
+    tag = "sharded edge batch correct"
+    kw = dict(seed=args.seed, decode_mode="correct", verify_extras=1, error_budget=1,
+              mesh=mesh, mode="all_to_all")
+    call = lambda: runtime.run_batch_over_pool(plan20, a, b, trace, **kw)  # noqa: E731
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = call()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    esites = {**edge_sites(plan20, batch), **sharded_sites(plan20, batch, 1)}
+    note(tag, esites, ("B1 share A", "B1 share B", "X2 multiply"), "int32")
+    check_y(run.y, want_h, tag)
+    m = run.metrics
+    if 1 not in m.corrected_workers.tolist() or 0 in m.phase2_ids.tolist():
+        raise AssertionError(f"[{tag}] corrupt worker 1 not corrected ({m.corrected_workers}) or "
+                             f"dropped worker 0 in the Phase-2 set {m.phase2_ids.tolist()}")
+    times[tag] = {"wall_ms": round(wall, 3), "runs": 1,
+                  "split": split_call(torch, modules, call, SHARDED_SPLIT_TARGETS)}
+    log(f"[{tag}] trace seed {tseed} (worker 0 dropped, 1 corrupt): Y exact; phase2 "
+        f"{m.phase2_ids.tolist()} corrected {m.corrected_workers.tolist()}")
+    log(f"[sharded time] {tag}: " + json.dumps(times[tag]))
+    del run
+
+    # a short ServingEngine stream with the mesh
+    k_, rows, out = WIDTH
+    cfg, traces, w, xs, arrivals = serve_stream(np, runtime, constructions, args.seed, k_, rows, out)
+    xs, arrivals = xs[:SHARDED_SERVE_REQUESTS], arrivals[:SHARDED_SERVE_REQUESTS]
+    cache = {}
+    want_y = [serve_oracle(torch, np, layers, gf, w, x, cache)[0] for x in xs]
+    del cache
+    tag = "sharded serve"
+    eng = serve.ServingEngine(w, traces, cfg, seed=args.seed, mode="continuous", pipe_depth=2,
+                              max_batch=SERVE_MAX_BATCH, slo=30.0, decode_mode="hybrid",
+                              mesh=mesh, exchange_mode="psum")
+    for x, t in zip(xs, arrivals):
+        eng.submit(x, float(t))
+    K.reset_launch_counts()
+    box = {}
+    split = split_call(torch, modules, lambda: box.setdefault("report", eng.run()),
+                       SHARDED_SPLIT_TARGETS)
+    rep = box["report"]
+    for r, y in zip(rep.requests, want_y):
+        if r.state != "done" or not np.array_equal(r.y, y):
+            raise AssertionError(f"[{tag}] request {r.rid} {r.state}: y differs from the card oracle")
+    splan = eng._session.plan
+    by_kernel = {n: c for n, c in K.LAUNCHES_BY_KERNEL.items() if c}
+    if by_kernel != {"int32_mma": rep.replays, "int32_skinny": 2 * rep.replays}:
+        raise AssertionError(f"[{tag}] launches {by_kernel} over {rep.replays} replays")
+    sizes = sorted(collections.Counter(r.replay for r in rep.requests).values())
+    allowed: dict = {}
+    for nb in set(sizes):
+        ssites = {**serve_sites(splan, nb), **sharded_sites(splan, nb, 1)}
+        names = ("S1 share A", "S1 share B", "X2 multiply")
+        for compiled, shapes in expected_shapes(K, ssites, names, "int32").items():
+            for shape, n in shapes.items():
+                allowed.setdefault(compiled, collections.Counter())[shape] += n * sizes.count(nb)
+        for site in names:
+            shape = geometry(*ssites[site])
+            sites_of.setdefault((f"int32_{K.choose_design('int32', False, *shape)}", shape),
+                                (f"{site} ({nb} req)", *ssites[site], "int32"))
+    note(tag, None, (), "int32", expect={n: dict(c) for n, c in allowed.items()})
+    split["per_replay_wall_ms"] = round(split["wall_ms"] / rep.replays, 3)
+    times[tag] = {"split": split, "replays": rep.replays, "summary": rep.summary()}
+    log(f"[{tag}] {len(xs)} requests of [serve] over mesh (psum), replays of {sizes} requests: "
+        f"every y exact; " + json.dumps(rep.summary()))
+    log(f"[sharded time] {tag}: " + json.dumps(split))
+    del eng, rep, box, a, b, want
+    torch.cuda.empty_cache()
+    return {"counts": counts, "sites": sites_of, "times": times, "peaks": peaks,
+            "dense_digest": dense_digest, "plan": plan}
+
+
+def sharded_rank(rank: int, d: int, src: str, store: str, out: str, seed: int, batch: int,
+                 reps: int) -> None:
+    """One of ``d`` gloo ranks sharing the card: ``run_batched_sharded`` at
+    the [sharded] width in every mode (Y against the float64 oracle, the
+    launches of the first call, the median wall of ``reps``), and
+    ``run_phase2_sharded`` on the phase's shares and noise (I's digest);
+    writes its results as JSON to ``out``."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import constructions, distributed, gf, planner, protocol
+    from repro_torch.kernels.modmatmul import kernel as K
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    res = {"rank": rank, "modes": {}}
+    dist.init_process_group("gloo", store=dist.FileStore(store, d), rank=rank, world_size=d)
+    try:
+        mesh = distributed.workers_mesh("cuda")
+        res["backend"] = str(dist.get_backend(mesh.get_group("workers")))
+        plan, a, b, want = main_operands(torch, planner, constructions, batch, 5120, seed + 11)
+        for mode in SHARDED_MODES:
+            K.reset_launch_counts()
+            y, _ = protocol.run_batched_sharded(plan, a, b, mesh, mode=mode, seed=seed)
+            torch.cuda.synchronize()
+            launches = launched_shapes(K)
+            exact = bool(torch.equal(y, want))
+            del y
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                protocol.run_batched_sharded(plan, a, b, mesh, mode=mode, seed=seed)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            res["modes"][mode] = {
+                "exact": exact, "median_wall_ms": round(statistics.median(walls), 3),
+                "launches": {n: {str(list(s)): c for s, c in v.items()} for n, v in launches.items()}}
+        fa, fb, noise = phase2_operands(torch, gf, protocol, plan, a, b, seed + 12)
+        res["phase2_digest"] = {
+            mode: digest(distributed.run_phase2_sharded(plan, fa, fb, noise, mesh, mode=mode))
+            for mode in SHARDED_MODES}
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def sharded_ranks(torch, K, one_rank: dict, args) -> dict:
+    """[sharded] over SHARDED_RANKS gloo ranks on the one card (npad 20:
+    three pad workers): every rank's Y exact and its I equal to the dense
+    Phase 2's (the one-rank run's digest), X2 at its d > 1 shape.  Every
+    process started is joined or killed here."""
+    import multiprocessing as mp
+    import tempfile
+
+    d = SHARDED_RANKS
+    plan, batch = one_rank["plan"], args.batch
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sharded_", dir=root)
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(d)]
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, d, args.src, os.path.join(tmp, "store"), outs[r], args.seed,
+                               batch, 3)) for r in range(d)]
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(300)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    secs = time.perf_counter() - t0
+    codes = [proc.exitcode for proc in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"[sharded d={d}] ranks exited {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    x2 = geometry(*sharded_sites(plan, batch, d)["X2 multiply"])
+    expect = expected_shapes(K, sharded_sites(plan, batch, d), X_SITES, "int32")
+    for res in ranks:
+        tag = f"sharded d={d} rank {res['rank']}"
+        for mode, m in res["modes"].items():
+            got = {n: {tuple(json.loads(s)): c for s, c in v.items()} for n, v in m["launches"].items()}
+            if not m["exact"] or got != expect:
+                raise AssertionError(f"[{tag}] {mode}: exact {m['exact']}, launches {got}, "
+                                     f"expected {expect}")
+        if set(res["phase2_digest"].values()) != {one_rank["dense_digest"]}:
+            raise AssertionError(f"[{tag}] I digests {res['phase2_digest']} differ from the "
+                                 f"dense Phase 2's {one_rank['dense_digest']}")
+        log(f"[{tag}] backend {res['backend']}: Y exact in {list(res['modes'])}; I == dense "
+            f"Phase 2 in every mode; X2 {list(x2)}; peak {res['peak_bytes']} bytes; median wall ms "
+            + json.dumps({mode: m["median_wall_ms"] for mode, m in res["modes"].items()}))
+    site = sharded_sites(plan, batch, d)["X2 multiply"]
+    key = (f"int32_{K.choose_design('int32', False, *x2)}", x2)
+    one_rank["counts"][key] += len(SHARDED_MODES)  # rank 0's counted calls
+    one_rank["sites"].setdefault(key, (f"X2 multiply (d={d})", *site, "int32"))
+    log(f"[sharded d={d}] {d} gloo ranks on one card, n_total {plan.n_total} padded to "
+        f"{plan.n_total + (-plan.n_total) % d}: every rank exact, {secs:.1f} s with start-up")
+    return {"d": d, "seconds": round(secs, 1), "ranks": ranks}
+
+
+def sharded_entries(torch, K, ref, sharded: dict, entries: list, args) -> list:
+    """The [sharded] phase's launch shapes on the ``kernels`` line: a shape
+    the line already holds (by kernel and geometry) is logged with its
+    launches; any other is timed and held against its plain version."""
+    held = set()
+    for e in entries:
+        sa, sb = (json.loads(x) for x in e["shape"].split("+")[0].split("@"))
+        held.add((e["kernel"], geometry(sa, sb)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 13)
+    z = sharded["plan"].scheme.z
+    new = []
+    for key, n in sorted(sharded["counts"].items()):
+        site, sa, sb, variant = sharded["sites"][key]
+        if key in held:
+            log(f"[sharded sites] {key[0]:14s} {site:24s} {list(sa)}@{list(sb)}: {n} launches "
+                "over the phase's counted calls, a shape the kernels line holds")
+            continue
+        new.append(measure_site(torch, K, ref, gen, f"modmatmul_{variant}", variant, False, site,
+                                sa, sb, z, n, args))
+    return new
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1805,7 +2226,7 @@ def main() -> int:
         return 2
 
     from repro_torch import runtime, serve
-    from repro_torch.core import constructions, gf, layers, planner, protocol
+    from repro_torch.core import constructions, distributed, gf, layers, planner, protocol
     from repro_torch.kernels.modmatmul import fuzz
     from repro_torch.kernels.modmatmul import kernel as K
     from repro_torch.kernels.modmatmul import ops, ref
@@ -1832,11 +2253,14 @@ def main() -> int:
     crt_run = phase_crt(torch, K, layers, protocol, planner, constructions, gf, ops, args)
     fuzz_run = phase_fuzz(K, fuzz, args)
     model_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args)
+    sharded_run = phase_sharded(torch, K, ref, protocol, distributed, planner, constructions,
+                                runtime, serve, scheduler, layers, gf, args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
     entries += site_entries(torch, K, ref, f32_run, "f32", args)
     entries += edge_entries(torch, K, ref, edge_run, args)
     entries += serve_entries(torch, K, ref, serve_run, args)
     entries += model_entries(torch, K, ref, model_run, args)
+    entries += sharded_entries(torch, K, ref, sharded_run, entries, args)
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"kernel {name} was not launched on its path")
@@ -1845,6 +2269,7 @@ def main() -> int:
     on_path |= {n for run in serve_run["runs"].values() for n in run["counts"]}
     on_path |= {n for run in crt_run.values() for n in run["launches"]}
     on_path |= set(model_run["counts"])
+    on_path |= {compiled for compiled, _ in sharded_run["counts"]}
     for name in on_path:
         if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"compiled kernel {name} was not launched on its path")
@@ -1852,7 +2277,8 @@ def main() -> int:
         f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
         f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes; "
         f"serve peak {serve_run['peak']} bytes; fuzz {fuzz_run['cases']} cases clean; "
-        f"model peak {model_run['peak']} bytes")
+        f"model peak {model_run['peak']} bytes; sharded peak {max(sharded_run['peaks'].values())} "
+        f"bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

@@ -9,6 +9,7 @@ the same name:
 * ``closed_form``    — Theorems 2 & 8 worker counts (copy)
 * ``planner``        — CMPCPlan: evaluation points, interpolation matrices (copy)
 * ``protocol``       — the batched three-phase engine on torch tensors
+* ``distributed``    — the sharded Phase-2 exchange on ``torch.distributed``
 * ``layers``         — secure_matmul_batched over the reals
 """
 from .constructions import Scheme, build_scheme  # noqa: F401

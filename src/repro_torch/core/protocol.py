@@ -1,7 +1,7 @@
 """The three-phase CMPC protocol engine, on torch tensors.
 
-The counterpart of the JAX package's ``repro.core.protocol``, with two
-of its execution paths:
+The counterpart of the JAX package's ``repro.core.protocol``, with its
+three execution paths:
 
 * ``run``          — per-product reference: host-side block stacking,
                      numpy-rng secrets and blinding, the share
@@ -12,7 +12,10 @@ of its execution paths:
                      runtime's per-product data plane,
 * ``run_batched``  — the batched engine below, every phase on the
                      device; ``run_batched_crt`` runs it once per prime
-                     of a CRT modulus and combines on the host.
+                     of a CRT modulus and combines on the host,
+* ``run_batched_sharded`` — the batched engine with the Phase-2 exchange
+                     as one ``torch.distributed`` collective over a
+                     device mesh (``core.distributed``).
 
 The three phases:
 
@@ -564,6 +567,68 @@ def run_batched_crt(
             residues.append(y.cpu().numpy())
             traces.append(tr)
     return crt_combine(residues, primes), _sum_traces(traces)
+
+
+def run_batched_sharded(
+    plan: CMPCPlan,
+    a,
+    b,
+    mesh,
+    axis: str = "workers",
+    mode: str = "all_to_all",
+    seed: int = 0,
+    phase2_ids: Optional[Sequence[int]] = None,
+    phase3_ids: Optional[Sequence[int]] = None,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, Trace]:
+    """Batched protocol with the *distributed* Phase 2 over a device mesh.
+
+    Same contract as ``run_batched``, but the degree-reduction exchange
+    is the collective of ``repro_torch.core.distributed.run_phase2_sharded``
+    (``mode`` selects ``all_to_all`` / ``psum`` / ``psum_scatter``):
+    workers live as shards on the ``axis`` mesh dimension, each rank
+    multiplies its own workers' shares, and the whole batch rides one
+    collective.  Every rank of ``mesh`` calls this with the same
+    arguments and gets the same Y; each computes on its mesh's device
+    (``distributed.mesh_device``).  Phases 1 and 3 are ``run_batched``'s
+    (``share_batched`` / ``_decode_batched``).
+
+    ``phase2_ids`` is the Phase-2 sender subset and routes through the
+    plan's cached subset mix matrices; ``phase3_ids`` is the responder
+    subset for the decode.  Unlike ``run_batched``'s summed-blinding
+    shortcut, the exchange keeps faithful *per-worker* blinding draws
+    R_w^{(n)}, drawn on the device from the key's second half (unfused
+    draws differ from the reference's by construction; Y does not
+    depend on them).
+
+    Returns (y [batch, ma, mb] int64 on the rank's device, Trace for the
+    whole batch).
+    """
+    from .distributed import mesh_device, run_phase2_sharded  # local: avoid cycle
+
+    device = mesh_device(mesh)
+    a, b = _prep_batched_operands(plan, a, b, device)
+    p, t, z = plan.field.p, plan.scheme.t, plan.scheme.z
+    batch = int(a.shape[0])
+    kshare, knoise = split(prng_key(seed), 2)
+    with TRACER.span(
+        "protocol.run_batched_sharded", batch=batch, mode=mode, backend=backend
+    ):
+        fa, fb = share_batched(plan, a, b, kshare, backend=backend, device=device)
+        noise = random_field_device(
+            _generator(knoise, device), (batch, plan.n_workers, z) + plan.shapes.blk_y,
+            p, device,
+        )
+        with TRACER.span("protocol.phase2.sharded_exchange", mode=mode):
+            i_evals = run_phase2_sharded(
+                plan, fa, fb, noise, mesh, axis=axis, mode=mode, matmul_backend=backend,
+                worker_ids=None if phase2_ids is None else np.asarray(phase2_ids),
+            )  # [batch, n_total, bry, bcy]
+        del fa, fb, noise
+        ids3, decode_w = _phase3_device_selection(plan, phase3_ids, device)
+        with TRACER.span("protocol.phase3.decode_batched"):
+            y = _decode_batched(i_evals, decode_w, ids3, p=p, t=t, backend=backend)
+    return y.to(torch.int64), batch_trace(plan, batch)
 
 
 # ----------------------------------------------------------------------

@@ -13,8 +13,9 @@ simulated protocol time.
 
 ``--device`` picks the device (default: the GPU; ``cpu`` on request).
 The port runs on one device: ``--mesh`` takes ``elastic`` or ``1x1``,
-both meaning that device; a mesh of several waits for the sharded path
-(ROADMAP item 11).  Only the dense decoder is ported (ROADMAP item 12).
+both meaning that device.  A ``(data, model)`` mesh of several devices
+shards the model (``distributed/sharding.py``) and waits for ROADMAP
+item 13.  Only the dense decoder is ported (ROADMAP item 12).
 """
 import argparse
 import time
@@ -57,7 +58,8 @@ def main(argv=None):
     if args.mesh not in ONE_DEVICE_MESHES:
         raise NotImplementedError(
             f"--mesh {args.mesh}: the port runs on one device ({' or '.join(ONE_DEVICE_MESHES)}); "
-            "a mesh of several devices waits for the sharded path (ROADMAP item 11)"
+            "a (data, model) mesh of several devices waits for the model's sharding "
+            "(distributed/sharding.py, ROADMAP item 13)"
         )
     cfg = get_config(args.arch)
     if args.reduced:

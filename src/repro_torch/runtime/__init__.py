@@ -22,8 +22,9 @@ The event loop, the decode search and every draw from the ``numpy`` rng
 are the reference's, so a given trace and seed give the reference's
 timelines, subsets and metrics exactly.  The data plane (shares, worker
 multiply, degree reduction) runs on the device, by default the GPU, and
-every GF(p) product goes through the kernels.  The reference's sharded
-Phase 2 (``mesh=``) is not ported yet and raises ``NotImplementedError``.
+every GF(p) product goes through the kernels.  With ``mesh=`` a batched
+replay's Phase 2 is the sharded exchange (``core.distributed``): one
+``torch.distributed`` collective over the mesh's ranks.
 """
 from .pool import (  # noqa: F401
     AsymmetricLinks,

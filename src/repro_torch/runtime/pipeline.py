@@ -57,8 +57,8 @@ The counterpart of ``repro.runtime.pipeline``: the timing model, the
 rng lanes and the event loop are the reference's; each replay's shares
 and Phase 2 run on the device (default: the GPU) through the batched
 engine, with the share key ``gf.fold_in(gf.prng_key(seed), k)`` as the
-reference folds its JAX key.  ``mesh=`` (the sharded Phase-2 exchange)
-is not ported yet and raises ``NotImplementedError``.
+reference folds its JAX key.  With ``mesh=`` each replay's Phase 2 is
+the sharded exchange of ``core.distributed``.
 """
 from __future__ import annotations
 
@@ -80,7 +80,6 @@ from .scheduler import (
     _batched_compute_closure,
     _build_metrics,
     _check_pool,
-    _refuse_mesh,
     _replay_events,
     _resolve_decode_mode,
     _resolve_error_budget,
@@ -191,7 +190,8 @@ class PipelineSession:
     session — see the serving engine's reconfiguration barrier.
 
     Every replay's data plane runs on ``device`` (default: the GPU);
-    ``mesh`` raises ``NotImplementedError`` (not ported yet).
+    with ``mesh`` its Phase 2 is the sharded collective over the
+    ``axis`` mesh dimension in ``mode`` (``run_batch_over_pool``).
     """
 
     def __init__(
@@ -217,7 +217,6 @@ class PipelineSession:
     ):
         if plan is None and planner is None:
             raise ValueError("need a plan or a planner")
-        _refuse_mesh(mesh)
         self.device = proto.resolve_device(device)
         self.plan = plan
         self.planner = planner
@@ -225,6 +224,9 @@ class PipelineSession:
         self.base_time = float(base_time)
         self._verify_extras = verify_extras
         self._master_decode_cost = master_decode_cost
+        self._mesh = mesh
+        self._axis = axis
+        self._mode = mode
         self._backend = backend
         self._plan_seed = plan_seed
         self._compute_scale = compute_scale
@@ -375,7 +377,8 @@ class PipelineSession:
             backend=self._backend, device=self.device,
         )
         compute_i_all = _batched_compute_closure(
-            plan_k, fa, fb, rng, batch, self._backend
+            plan_k, fa, fb, rng, batch, self._mesh, self._axis, self._mode,
+            self._backend,
         )
         # Trace annotations: lane index + absolute start, plus the
         # deciding PlanDecision when a planner drives the pipeline
@@ -552,13 +555,13 @@ def run_pipeline_over_pool(
     folded key ``gf.fold_in(gf.prng_key(seed), k)``, so replays are
     independent but the whole pipeline is reproducible per seed.
 
-    Every replay runs on ``device`` (default: the GPU); ``mesh`` raises
-    ``NotImplementedError`` (not ported yet).
+    Every replay runs on ``device`` (default: the GPU); with ``mesh``
+    each replay's Phase 2 is the sharded collective (``mode`` over the
+    ``axis`` mesh dimension), as in ``run_batch_over_pool``.
 
     Returns :class:`PipelineRun` with per-replay results on one
     absolute clock plus the aggregate :class:`PipelineMetrics`.
     """
-    _refuse_mesh(mesh)
     device = proto.resolve_device(device)
     depth = len(traces)
     if depth == 0:

@@ -72,9 +72,10 @@ subsets and metrics.  The data plane runs on the device (default: the
 GPU): ``share_a/b``, ``worker_multiply``, ``degree_reduce`` and
 ``share_batched`` of ``repro_torch.core.protocol``, every product
 through the GF(p) kernels; the Phase-2 evaluations come to the host in
-one copy when the Phase-2 set is fixed.  The reference's ``mesh=``
-path (the ``shard_map`` Phase-2 exchange) is not ported yet: passing a
-mesh raises ``NotImplementedError``.
+one copy when the Phase-2 set is fixed.  With ``mesh=`` the batched
+replay's Phase 2 is the sharded exchange of ``core.distributed`` (one
+``torch.distributed`` collective over the mesh's ranks), driven by the
+scheduler's fastest subset, as the reference's ``shard_map`` path is.
 """
 from __future__ import annotations
 
@@ -89,6 +90,7 @@ import torch
 from ..core import gf
 from ..core import protocol as proto
 from ..core.bw_decode import BWDecodeError, bw_decode_evals, bw_system_size
+from ..core.distributed import run_phase2_sharded
 from ..core.planner import CMPCPlan
 from ..obs.metrics import REGISTRY
 from ..obs.tracer import TRACER
@@ -100,16 +102,6 @@ _EMPTY_IDS = np.array([], np.int64)
 
 class DecodeFailure(RuntimeError):
     """The pool could not complete the protocol (too many faults)."""
-
-
-def _refuse_mesh(mesh) -> None:
-    """The sharded Phase-2 exchange (``mesh=``) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded Phase-2 exchange) is not ported to repro_torch "
-            "yet: ROADMAP item 11 (torch.distributed); run without a mesh for "
-            "the dense Phase 2"
-        )
 
 
 def _to_host(i_all) -> np.ndarray:
@@ -717,23 +709,48 @@ def run_over_pool(
     return EdgeRun(y=y, metrics=metrics)
 
 
+def _sender_noise(plan: CMPCPlan, rng: np.random.Generator, batch: int) -> np.ndarray:
+    """The sharded exchange's per-worker blinding: each of the
+    ``n_workers`` Phase-2 senders' z matrices per product, drawn on the
+    host from ``rng`` as the reference draws them (the same point of the
+    stream), int64 [batch, n_workers, z, bry, bcy]."""
+    bry, bcy = plan.shapes.blk_y
+    return plan.field.random(rng, (batch, plan.n_workers, plan.scheme.z, bry, bcy))
+
+
 def _batched_compute_closure(
     plan: CMPCPlan,
     fa: torch.Tensor,
     fb: torch.Tensor,
     rng: np.random.Generator,
     batch: int,
+    mesh,
+    axis: str,
+    mode: str,
     backend: str,
 ) -> Callable[[np.ndarray], torch.Tensor]:
     """``compute_i_all`` for a batched replay (shared with the pipeline).
 
     Folds the whole batch into each worker's payload so one Phase-2
-    pass serves every product: the dense single-host simulation, on
-    the shares' device, every product on ``backend``.
+    pass serves every product, every product on ``backend``: with
+    ``mesh`` the exchange is the sharded collective driven by the
+    scheduler's fastest subset, else the dense single-host simulation on
+    the shares' device.
     """
     bry, bcy = plan.shapes.blk_y
 
     def compute_i_all(phase2_ids: np.ndarray) -> torch.Tensor:
+        if mesh is not None:
+            # Faithful distributed exchange: per-worker blinding draws,
+            # whole batch on one collective, sender subset = the
+            # scheduler's fastest n_workers.
+            noise = _sender_noise(plan, rng, batch)
+            i_b = run_phase2_sharded(
+                plan, fa, fb, noise, mesh,
+                axis=axis, mode=mode, matmul_backend=backend,
+                worker_ids=phase2_ids,
+            )  # [batch, n_total, bry, bcy]
+            return i_b.movedim(1, 0).reshape(plan.n_total, batch * bry, bcy)
         # Dense simulation: fold the batch into the block rows so the
         # existing degree-reduction matmul serves every product at once.
         h = proto.worker_multiply(plan, fa, fb, backend=backend)  # [batch, n_total, bry, bcy]
@@ -789,9 +806,13 @@ def run_batch_over_pool(
     ``degree_reduce``), all on ``device`` (default: the GPU), every
     product on ``backend``; the decode runs on the host.
 
-    ``mesh`` (the reference's sharded Phase-2 exchange) is not ported
-    yet and raises ``NotImplementedError``; ``axis`` and ``mode`` belong
-    to it.
+    With ``mesh`` the Phase-2 exchange is the sharded collective
+    (``core.distributed.run_phase2_sharded``, ``mode`` one of
+    ``all_to_all`` / ``psum`` / ``psum_scatter`` over the ``axis`` mesh
+    dimension) driven by the scheduler's fastest-subset ``worker_ids``:
+    the edge runtime and the distributed data plane composed end to end.
+    Every rank of the mesh makes the same call; ``device`` must be of the
+    mesh's device type.
 
     ``decode_mode`` / ``error_budget`` / ``max_subset_tries`` select the
     corruption-handling strategy exactly as in ``run_over_pool``; a
@@ -802,7 +823,6 @@ def run_batch_over_pool(
     Returns :class:`BatchEdgeRun` (y a host int64 array); raises
     :class:`DecodeFailure` exactly like ``run_over_pool``.
     """
-    _refuse_mesh(mesh)
     device = proto.resolve_device(device)
     alive = _check_pool(plan, trace)
     verify_extras = _resolve_verify_extras(verify_extras, trace)
@@ -818,7 +838,9 @@ def run_batch_over_pool(
     fa, fb = proto.share_batched(
         plan, a_t, b_t, gf.prng_key(seed), backend=backend, device=device
     )
-    compute_i_all = _batched_compute_closure(plan, fa, fb, rng, batch, backend)
+    compute_i_all = _batched_compute_closure(
+        plan, fa, fb, rng, batch, mesh, axis, mode, backend
+    )
 
     res = _replay_events(
         plan, trace, alive, compute_i_all, verify_extras, rng,

@@ -58,8 +58,9 @@ float operations, so the same requests and traces give the reference's
 data plane runs on ``device`` (default: the GPU, resolved once at
 construction and handed to every ``PipelineSession`` the engine
 builds) through the port's kernels; the decode runs on the host.
-``mesh=`` (the sharded Phase-2 exchange) is not ported yet and raises
-``NotImplementedError`` at construction.
+With ``mesh=`` every replay's Phase 2 is the sharded exchange of
+``core.distributed`` (``axis``, ``exchange_mode``), handed to every
+session the engine builds.
 """
 from __future__ import annotations
 
@@ -78,7 +79,7 @@ from ..obs.tracer import TRACER
 from ..runtime.metrics import estimate_pool, observed_run
 from ..runtime.pipeline import PipelineRun, PipelineSession
 from ..runtime.pool import ElasticPool, WorkerTrace
-from ..runtime.scheduler import DEFAULT_SUBSET_TRIES, HybridState, _refuse_mesh
+from ..runtime.scheduler import DEFAULT_SUBSET_TRIES, HybridState
 from .request import DONE, SHED, EngineReport, Request
 
 TraceSource = Union[WorkerTrace, ElasticPool, Sequence[WorkerTrace]]
@@ -112,8 +113,9 @@ class ServingEngine:
     request's full lifecycle.  ``submit`` after ``run`` starts a new
     load wave on the same engine clock.
 
-    Every replay runs on ``device`` (default: the GPU); ``mesh`` raises
-    ``NotImplementedError`` (not ported yet).
+    Every replay runs on ``device`` (default: the GPU); with ``mesh``
+    its Phase 2 is the sharded collective over the ``axis`` mesh
+    dimension in ``exchange_mode``.
     """
 
     def __init__(
@@ -145,7 +147,6 @@ class ServingEngine:
         validate: bool = False,
         device=None,
     ):
-        _refuse_mesh(mesh)
         self.device = resolve_device(device)
         if mode not in ("continuous", "boundary"):
             raise ValueError(f"mode must be 'continuous' or 'boundary', got {mode!r}")

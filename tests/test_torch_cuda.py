@@ -450,3 +450,86 @@ def test_launcher_private_head_runs_on_the_card(cuda):
     assert res.returncode == 0, res.stdout + res.stderr
     assert "on cuda" in res.stdout
     assert "private head: 3 protocol replays over 3 steps on 16 workers" in res.stdout
+
+
+# ----------------------------------------------------------------------
+# the sharded Phase 2: a one-rank group, NCCL for the card's tensors and
+# gloo for the CPU's, so one process holds both meshes
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def meshes():
+    """(a ``workers`` mesh on the card over NCCL, one on the CPU over gloo)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run on the GPU machine)")
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield distributed.workers_mesh("cuda"), distributed.workers_mesh("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["all_to_all", "psum", "psum_scatter"])
+def test_sharded_phase2_on_the_card_equals_the_cpu_run(meshes, mode):
+    from repro_torch.core import distributed
+
+    card_mesh, cpu_mesh = meshes
+    plan, a, b, _, want = _edge_setup()
+    a, b, want = a[0], b[0], want[0]
+    fa, fb = protocol.share_batched(plan, a, b, gf.prng_key(4), device="cpu")
+    rng = np.random.default_rng(8)
+    noise = rng.integers(0, P, (4, plan.n_workers, plan.scheme.z) + plan.shapes.blk_y)
+    ids = np.array([i for i in range(plan.n_total) if i not in (0, 2)])[: plan.n_workers]
+    for worker_ids in (None, ids):
+        cpu = distributed.run_phase2_sharded(plan, fa, fb, noise, cpu_mesh, mode=mode,
+                                             worker_ids=worker_ids)
+        card = distributed.run_phase2_sharded(plan, fa.cuda(), fb.cuda(), noise, card_mesh,
+                                              mode=mode, worker_ids=worker_ids)
+        assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+    # the card's mesh refuses CPU tensors: nothing is staged through the host
+    with pytest.raises(ValueError, match="cuda mesh cannot take tensors on cpu"):
+        distributed.run_phase2_sharded(plan, fa, fb, noise, card_mesh, mode=mode)
+    kw = dict(mode=mode, seed=3, phase2_ids=ids, phase3_ids=np.arange(2, 2 + plan.decode_threshold))
+    y_cpu, _ = protocol.run_batched_sharded(plan, a, b, cpu_mesh, **kw)
+    K.reset_launch_counts()
+    y_card, _ = protocol.run_batched_sharded(plan, a, b, card_mesh, **kw)
+    torch.cuda.synchronize()
+    # shares A and B, the per-shard multiply, the decode: the mix is tensor ops
+    assert sum(K.LAUNCHES_BY_KERNEL.values()) == 4
+    assert y_card.device.type == "cuda"
+    np.testing.assert_array_equal(y_card.cpu().numpy(), want)
+    np.testing.assert_array_equal(y_cpu.numpy(), want)
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+def test_mesh_edge_and_serving_on_the_card_equal_the_cpu_run(meshes, backend):
+    card_mesh, cpu_mesh = meshes
+    plan, a, b, traces, want = _edge_setup()
+    kw = dict(seed=3, decode_mode="correct", verify_extras=1, error_budget=1, backend=backend,
+              mode="psum_scatter")
+    cpu = runtime.run_batch_over_pool(plan, a[0], b[0], traces[0], mesh=cpu_mesh, device="cpu",
+                                      **kw)
+    card = runtime.run_batch_over_pool(plan, a[0], b[0], traces[0], mesh=card_mesh, **kw)
+    np.testing.assert_array_equal(card.y, want[0])
+    np.testing.assert_array_equal(card.y, cpu.y)
+    _same(cpu.metrics, card.metrics, "mesh batched replay")
+    assert 1 in card.metrics.corrected_workers.tolist()
+
+    reports = []
+    for device, mesh in (("cpu", cpu_mesh), (None, card_mesh)):
+        cfg = constructions.PlanConfig("age", 2, 2, 2)
+        traces = [runtime.sample_trace(cfg.n_workers + 4, runtime.ShiftedExponential(0.1, 0.5),
+                                       seed=9000 + i, net_scale=0.3) for i in range(4)]
+        rng = np.random.default_rng(4)
+        eng = serve.ServingEngine(rng.normal(size=(256, 64)), traces, cfg, slo=30.0, max_batch=4,
+                                  backend=backend, mesh=mesh, device=device)
+        for t in np.cumsum(rng.exponential(1 / 0.6, 4)):
+            eng.submit(rng.normal(size=(32, 256)), float(t))
+        reports.append(eng.run())
+    cpu_rep, card_rep = reports
+    assert card_rep.summary() == cpu_rep.summary() and card_rep.summary()["served"] == 4
+    for rc_, rp_ in zip(card_rep.requests, cpu_rep.requests):
+        np.testing.assert_array_equal(rc_.y, rp_.y)

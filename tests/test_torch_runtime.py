@@ -370,17 +370,6 @@ def test_tracer_records_equal_reference(setup):
 # ----------------------------------------------------------------------
 # guards
 # ----------------------------------------------------------------------
-def test_mesh_is_not_ported_and_raises(setup):
-    _, tplan, a, b, _ = setup
-    trace = T.sample_trace(tplan.n_total, T.Deterministic(1.0), seed=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.run_batch_over_pool(tplan, a, b, trace, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.run_pipeline_over_pool(tplan, a[None], b[None], [trace], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.PipelineSession(tplan, mesh=object(), device="cpu")
-
-
 def test_runtime_entry_points_refuse_to_run_without_a_gpu_or_a_device(setup, monkeypatch):
     _, tplan, a, b, _ = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

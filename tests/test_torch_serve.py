@@ -439,13 +439,6 @@ def test_session_matches_run_pipeline_over_pool_and_the_reference():
 # ----------------------------------------------------------------------
 # guards
 # ----------------------------------------------------------------------
-def test_engine_mesh_is_not_ported_and_raises_at_construction():
-    w = np.zeros((K_DIM, OUT))
-    traces = [_carry(t) for t in _traces(1)]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        TS.ServingEngine(w, traces, tc.PlanConfig(*CFG), mesh=object(), device="cpu")
-
-
 def test_engine_refuses_to_run_without_a_gpu_or_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     w = np.zeros((K_DIM, OUT))
