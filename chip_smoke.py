@@ -95,7 +95,19 @@ Phases (each raises on failure; the exit code is then not 0):
              trunk ms per step (CUDA events), each replay's wall split as
              ``[serve time]`` splits it, the simulated p50/p95, the peak
              device memory and the launches per compiled kernel;
-10. sharded — the sharded Phase 2 (``repro_torch.core.distributed``) at
+10. moe    — with the Mistral model freed, DeepSeek-V2-Lite-16B at full
+             width and depth (27 layers, layer 0 dense with d_ff 10944,
+             d_model 2048, 16 heads of MLA (kv_lora 512, rope 64, nope
+             128, v 128), 64 experts top-6 + 2 shared with d_ff_expert
+             1408, vocab 102400; 15,706,470,400 random parameters from
+             ``--seed``) through the same launcher path and checks as
+             ``model`` (lm head [2048, 102400]), and the capacity drops of
+             the prefill; layer 0 (MLA + dense MLP) card (bfloat16)
+             against CPU (float32), and layer 1 (MLA + MoE) in float32 on
+             both sides with TF32 off: the same top-6 experts for every
+             token whose 6th and 7th router probabilities are more than
+             1e-6 apart, the outputs within 2**-12 of the largest;
+11. sharded — the sharded Phase 2 (``repro_torch.core.distributed``) at
              the main path's width: a one-rank NCCL group from a
              ``HashStore`` and its ``workers`` mesh on the card;
              ``run_batched_sharded`` in all_to_all, psum and psum_scatter
@@ -114,13 +126,14 @@ Phases (each raises on failure; the exit code is then not 0):
              (every y exact); then 4 gloo ranks sharing the card (n_total
              17 padded to 20): every rank's Y exact in every mode and its
              I equal to the dense Phase 2's;
-11. timing — each kernel at each launch site of its paths (the
+12. timing — each kernel at each launch site of its paths (the
              ``run_batched`` sites, the edge runtime's, a serving
-             replay's at n_total 21 and one request, and an lm-head
-             replay's, H, at n_total 16, and any shape the sharded
+             replay's at n_total 21 and one request, the lm-head
+             replays', H and D, at n_total 16, and any shape the sharded
              phase launched that no other site has; the plain version
-             of the 10.7 GB H1 share B in column slices): exact against the
-             plain version, CUDA-event time, device time of launches
+             of the 10.7 GB H1 share B and the 3.4 GB D1 share B in
+             column slices): exact against the plain version,
+             CUDA-event time, device time of launches
              queued back to back (behind a busy-wait kernel), plain
              version, bound, library call, design; printed as one JSON
              line.  Every other shape the serving runs launched (a
@@ -1521,9 +1534,23 @@ def phase_fuzz(K, fuzz, args) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 9: the dense decoder and the launcher's private head
+# phases 9 and 10: the decoders and the launcher's private head
 # ----------------------------------------------------------------------
-MODEL_ARCH = "mistral-nemo-12b"
+# phase tag -> (arch, the prefix of its lm-head launch sites)
+MODEL_PHASES = {"model": ("mistral-nemo-12b", "H"), "moe": ("deepseek-v2-lite-16b", "D")}
+# the launch sites of one lm-head replay, [4, k] @ [k, vocab] on 16
+# workers (AGE s = t = 2, z = 1): Mistral's head is [5120, 131072],
+# DeepSeek's [2048, 102400]
+MODEL_SITES = {
+    "model": {"H1 share A": ((16, 5), (1, 5, 5120)), "H1 share B": ((16, 5), (1, 5, 167772160)),
+              "H2 multiply": ((16, 2, 2560), (16, 2560, 65536)),
+              "H2 mix": ((16, 14), (14, 131072)), "H2 noise": ((16, 1), (1, 131072))},
+    "moe": {"D1 share A": ((16, 5), (1, 5, 2048)), "D1 share B": ((16, 5), (1, 5, 52428800)),
+            "D2 multiply": ((16, 2, 1024), (16, 1024, 51200)),
+            "D2 mix": ((16, 14), (14, 102400)), "D2 noise": ((16, 1), (1, 102400))},
+}
+# the sum of decoder_abstract's leaves at DeepSeek-V2-Lite-16B's full width
+MOE_PARAMS = 15_706_470_400
 # the launcher's --private-head path at batch 4, prompt 32, gen 4: three
 # lm-head replays through the ServingEngine on 16 workers
 MODEL_ARGS = dict(batch=4, prompt_len=32, gen_len=4, workers=16)
@@ -1532,9 +1559,21 @@ MODEL_ARGS = dict(batch=4, prompt_len=32, gen_len=4, workers=16)
 # outputs and the residual sums to bfloat16 (2**-9 relative each), so
 # allow 4 bfloat16 ulps of the largest output, 2**-5 * max|cpu|
 MODEL_BLOCK_TOL = 2.0**-5
+# DeepSeek's first MoE block, float32 on the card (TF32 off) and on the
+# CPU from the same weights: the two sum in other orders, and a
+# 2048-long float32 dot is within 2048 * 2**-24 ~ 1.2e-4 of its value
+# relative to the sum of its |terms|; allow two such products in a row,
+# 2**-12 * max|cpu|.  A bfloat16 card against a float32 CPU would route
+# tokens to other experts and could not be compared.
+MOE_BLOCK_TOL = 2.0**-12
+# the router's probabilities on the two sides differ by those orders
+# (~1e-7 relative, ~1e-9 absolute near 1/64): a token whose 6th and 7th
+# probabilities are this far apart must take the same 6 experts on both
+MOE_ROUTE_GAP = 1e-6
 # the plain version of a launch with more outputs than this runs in
-# column slices (its int64 temporaries of the whole launch would not fit)
-PLAIN_SLICE_ELEMS = 1 << 30
+# column slices: it holds about ten int64 temporaries of the output's
+# size (limb sums and Barrett steps), ~43 GB at this many elements
+PLAIN_SLICE_ELEMS = 1 << 29
 PLAIN_COLS = 1 << 23
 # the replay check's column slices hold at most this many elements of b
 # or of the output each: the plain version makes two float32 limb copies
@@ -1542,72 +1581,160 @@ PLAIN_COLS = 1 << 23
 REPLAY_SLICE_ELEMS = 1 << 28
 
 
-def model_block(torch, lm, map_tree, cfg, model, prompts) -> dict:
+def first_layer(params: dict, map_tree) -> dict:
+    """Layer 0's parameters: a dense prologue layer's, else the first of
+    the stack."""
+    return params.get("dense_layer_0") or map_tree(lambda _, a: a[0], params["layers"])
+
+
+def model_block(torch, lm, map_tree, cfg, model, prompts, tag) -> dict:
     """Layer 0 of the model on the prompt's embeddings: on the card in
     bfloat16 and on the CPU in float32, from the same (bfloat16-stored)
-    weights; raises past ``MODEL_BLOCK_TOL``."""
+    weights; raises past ``MODEL_BLOCK_TOL``.  Returns the errors and
+    the CPU's output (``cpu_out``)."""
     params = model.params()
-    layer0 = map_tree(lambda _, a: a[0], params["layers"])
+    layer0 = first_layer(params, map_tree)
     tokens = torch.as_tensor(prompts, device="cuda").long()
     x = lm._embed_tokens(cfg, params, tokens, torch.bfloat16)
     pos = torch.arange(x.shape[1], device="cuda").expand(x.shape[:2])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    card, _ = lm._block_apply(cfg, layer0, x, pos)
+    card = lm._block_apply(cfg, layer0, x, pos)[0]
     end.record()
     end.synchronize()
     t0 = time.perf_counter()
-    cpu, _ = lm._block_apply(cfg, map_tree(lambda _, a: a.float().cpu(), layer0),
-                                x.float().cpu(), pos.cpu())
+    cpu = lm._block_apply(cfg, map_tree(lambda _, a: a.float().cpu(), layer0),
+                          x.float().cpu(), pos.cpu())[0]
     cpu_s = time.perf_counter() - t0
     card = card.float().cpu()
     err = float((card - cpu).abs().max())
     top = float(cpu.abs().max())
     rel = float((card - cpu).norm() / cpu.norm())
     if not bool(torch.isfinite(card).all()) or err > MODEL_BLOCK_TOL * top:
-        raise AssertionError(f"[model block] max |card - cpu| {err} > {MODEL_BLOCK_TOL} * {top}")
-    log(f"[model block] layer 0 on {tuple(x.shape)}: card (bfloat16) {start.elapsed_time(end):.3f} "
+        raise AssertionError(f"[{tag} block] max |card - cpu| {err} > {MODEL_BLOCK_TOL} * {top}")
+    log(f"[{tag} block] layer 0 on {tuple(x.shape)}: card (bfloat16) {start.elapsed_time(end):.3f} "
         f"ms, CPU (float32) {cpu_s:.2f} s; max |card - cpu| {err:.4e} <= {MODEL_BLOCK_TOL} * "
         f"max |cpu| {top:.4e}; relative Frobenius {rel:.3e}")
-    return {"max_abs_err": err, "max_abs": top, "rel_fro": rel}
+    return {"max_abs_err": err, "max_abs": top, "rel_fro": rel, "cpu_out": cpu}
 
 
-def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args) -> dict:
-    """Mistral-NeMo-12B at full width and depth on the card (random
-    weights from ``--seed``), and the launcher's private-head decode over
-    it: prefill, then each step's trunk on the card and its lm-head
-    matmul replayed under CMPC by the ServingEngine on ``auto``."""
+def moe_block(torch, lm, ffn, map_tree, cfg, model, x, tag) -> dict:
+    """The first MoE layer (layer 1) on x [B, T, d] float32 (layer 0's
+    CPU output): on the card and on the CPU, both in float32 from the
+    same bfloat16-stored weights, TF32 off.  Raises unless every token
+    whose 6th and 7th router probabilities (the CPU's) are more than
+    ``MOE_ROUTE_GAP`` apart takes the same experts on both sides, and the
+    outputs of the dispatch groups whose tokens all agree are within
+    ``MOE_BLOCK_TOL``.  Returns the counts and errors."""
+    layer1 = map_tree(lambda _, a: a[0].float(), model.params()["layers"])
+    pos = torch.arange(x.shape[1]).expand(x.shape[:2])
+    routes, route = [], ffn.route
+
+    def recording(logits, k):
+        out = route(logits, k)
+        routes.append((out[0].cpu(), out[2].cpu()))
+        return out
+
+    ffn.route = recording
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        card = lm._block_apply(cfg, layer1, x.cuda(), pos.cuda())[0].cpu()
+        card_s = time.perf_counter() - t0
+        cpu = lm._block_apply(cfg, map_tree(lambda _, a: a.cpu(), layer1), x.cpu(), pos)[0]
+    finally:
+        ffn.route = route
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (p_card, e_card), (p_cpu, e_cpu) = routes
+    k = cfg.moe.num_experts_per_tok
+    top = torch.sort(p_cpu, dim=-1, descending=True).values
+    clear = (top[..., k - 1] - top[..., k]) > MOE_ROUTE_GAP  # [g, ng]
+    same = (e_card.sort(-1).values == e_cpu.sort(-1).values).all(-1)
+    if not bool(same[clear].all()):
+        raise AssertionError(f"[{tag} block] {int((~same & clear).sum())} tokens outside the "
+                             f"gap {MOE_ROUTE_GAP} take other experts on the card")
+    g, ng = same.shape
+    groups = same.all(-1)  # [g]: outputs of a group hang on all its routes
+    rows = groups.repeat_interleave(ng)
+    diff = (card - cpu).reshape(g * ng, -1)[rows]
+    err = float(diff.abs().max()) if bool(rows.any()) else float("nan")
+    mag = float(cpu.abs().max())
+    if not bool(torch.isfinite(card).all()) or not groups.any() or err > MOE_BLOCK_TOL * mag:
+        raise AssertionError(f"[{tag} block] layer 1: max |card - cpu| {err} > {MOE_BLOCK_TOL} * "
+                             f"{mag} over {int(groups.sum())} of {g} groups")
+    p_err = float((p_card - p_cpu).abs().max())
+    log(f"[{tag} block] layer 1 (MLA + MoE) on {tuple(x.shape)}, float32 on both sides, TF32 "
+        f"off: {g} dispatch groups of {ng}; top-{k} expert sets equal for {int(same.sum())} of "
+        f"{same.numel()} tokens, {int((~clear).sum())} tokens inside the gap {MOE_ROUTE_GAP} "
+        f"(probability {k} less probability {k + 1}), max |p_card - p_cpu| {p_err:.3e}; max "
+        f"|card - cpu| {err:.4e} <= {MOE_BLOCK_TOL} * max |cpu| {mag:.4e} over "
+        f"{int(groups.sum())} groups; card "
+        f"{card_s:.3f} s (host clock, to the output's copy back)")
+    return {"max_abs_err": err, "max_abs": mag, "tokens": same.numel(),
+            "same_routes": int(same.sum()), "in_gap": int((~clear).sum()), "max_prob_err": p_err}
+
+
+def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args,
+                tag="model") -> dict:
+    """``MODEL_PHASES[tag]``'s model at full width and depth on the card
+    (random weights from ``--seed``), and the launcher's private-head
+    decode over it: prefill, then each step's trunk on the card and its
+    lm-head matmul replayed under CMPC by the ServingEngine on ``auto``.
+    Frees the model before it returns."""
+    import gc
+
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launcher
-    from repro_torch.models import build_model, lm
+    from repro_torch.models import build_model, ffn, lm
     from repro_torch.models.common import count_params, map_tree
 
-    cfg = get_config(MODEL_ARCH)
+    arch, prefix = MODEL_PHASES[tag]
+    cfg = get_config(arch)
     ns = argparse.Namespace(**MODEL_ARGS)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = build_model(cfg, seed=args.seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    if n_params != count_params(lm.decoder_abstract(cfg)):
-        raise AssertionError(f"[model] {n_params} parameters")
-    log(f"[model] {MODEL_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} x {cfg.resolved_head_dim} heads ({cfg.num_kv_heads} KV), d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters (param_count "
+    if n_params != count_params(lm.decoder_abstract(cfg)) or (cfg.moe and n_params != MOE_PARAMS):
+        raise AssertionError(f"[{tag}] {n_params} parameters")
+    attn = (f"MLA (kv_lora {cfg.mla.kv_lora_rank}, rope {cfg.mla.qk_rope_head_dim}, nope "
+            f"{cfg.mla.qk_nope_head_dim}, v {cfg.mla.v_head_dim})" if cfg.mla
+            else f"{cfg.resolved_head_dim}-wide heads ({cfg.num_kv_heads} KV)")
+    ff = (f"{cfg.moe.num_experts} experts top-{cfg.moe.num_experts_per_tok} + "
+          f"{cfg.moe.num_shared_experts} shared, d_ff_expert {cfg.moe.d_ff_expert}, dense "
+          f"layers {list(cfg.moe.dense_layers)} d_ff {cfg.moe.d_ff_dense}" if cfg.moe
+          else f"d_ff {cfg.d_ff}")
+    log(f"[{tag}] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, "
+        f"{attn}, {ff}, vocab {cfg.vocab_size}: {n_params} parameters (param_count "
         f"{cfg.param_count()}), random from seed {args.seed}, trunk and embed in "
-        f"{cfg.compute_dtype}, lm_head float32: {torch.cuda.memory_allocated()} bytes; "
-        f"init {init_s:.2f} s")
+        f"{cfg.compute_dtype}, lm_head float32: {torch.cuda.memory_allocated() - before} bytes "
+        f"({before} allocated before); init {init_s:.2f} s")
 
     max_len = ns.prompt_len + ns.gen_len
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (ns.batch, ns.prompt_len)).astype(np.int32)
-    model.prefill({"tokens": prompts}, model.init_cache(ns.batch, max_len))  # warm-up
+    # warm-up prefill; on an MoE model it also counts the capacity drops
+    drops, dispatch = [], ffn.dispatch
+
+    def counting(eidx, e, cap):
+        out = dispatch(eidx, e, cap)
+        drops.append((int(out[2].numel()), int((~out[2]).sum())))
+        return out
+
+    ffn.dispatch = counting
+    try:
+        model.prefill({"tokens": prompts}, model.init_cache(ns.batch, max_len))
+    finally:
+        ffn.dispatch = dispatch
     cache = model.init_cache(ns.batch, max_len)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1618,9 +1745,23 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
     prefill_ms = start.elapsed_time(end)
     if tuple(logits.shape) != (ns.batch, 1, cfg.padded_vocab) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError(f"[model] prefill logits {tuple(logits.shape)} not finite")
+        raise AssertionError(f"[{tag}] prefill logits {tuple(logits.shape)} not finite")
     tok = launcher.argmax_last(logits, cfg.vocab_size)
-    block = model_block(torch, lm, map_tree, cfg, model, prompts)
+    dropped = None
+    if cfg.moe:
+        pairs, lost = sum(n for n, _ in drops), sum(d for _, d in drops)
+        g, ng, cap = ffn.dispatch_shape(cfg, ns.batch * ns.prompt_len)
+        dropped = {"pairs": pairs, "dropped": lost, "layers": len(drops), "groups": g,
+                   "tokens_per_group": ng, "capacity": cap}
+        log(f"[{tag}] prefill capacity drops: {lost} of {pairs} (token, expert) pairs "
+            f"({lost / pairs:.4f}) over {len(drops)} MoE layers; {g} dispatch groups of {ng} "
+            f"tokens, capacity {cap} per expert and group")
+    block = model_block(torch, lm, map_tree, cfg, model, prompts, tag)
+    x1 = block.pop("cpu_out")
+    if cfg.moe:
+        block = {"layer0": block,
+                 "layer1": moe_block(torch, lm, ffn, map_tree, cfg, model, x1, tag)}
+    del x1
 
     # the launcher's private-head path; each trunk step timed with CUDA
     # events, each engine run split as [serve time] splits it; the first
@@ -1655,7 +1796,7 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
         if len(engines) == 1:
             t0 = time.perf_counter()
             replay_check["launches"] = model_replay_check(torch, ref, captured,
-                                                          self._session.plan)
+                                                          self._session.plan, prefix, tag)
             captured.clear()
             replay_check["seconds"] = time.perf_counter() - t0
             # the held operands raise this replay's peak; the served peak
@@ -1684,25 +1825,28 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
     summary = report.summary()
     if (steps != ns.gen_len - 1 or summary["served"] != steps or summary["shed"]
             or any(r.state != "done" for r in report.requests)):
-        raise AssertionError(f"[model] {steps} steps: {summary}")
-    sites = model_sites(eng._session.plan)
+        raise AssertionError(f"[{tag}] {steps} steps: {summary}")
+    sites = model_sites(eng._session.plan, prefix)
+    if sites != MODEL_SITES[tag]:
+        raise AssertionError(f"[{tag}] lm-head sites {sites}, expected {MODEL_SITES[tag]}")
     want = {n: {sh: c * summary["replays"] for sh, c in v.items()}
             for n, v in expected_shapes(K, sites, sites, "int32").items()}
     if shapes != want:
-        raise AssertionError(f"[model] launches {shapes} over {summary['replays']} replays, "
+        raise AssertionError(f"[{tag}] launches {shapes} over {summary['replays']} replays, "
                              f"expected {want}")
 
     # each replay's field values against a float64 product of the encoded
     # operands on the card; each logit within its quantisation bound.  At
-    # k = 5120 the encoded head is all zero (ROADMAP C8), so both checks
-    # compare zeros here; model_replay_check holds the kernels on the
-    # replay's own (non-zero) operands
+    # k = 5120 and k = 2048 the encoded head is all zero (ROADMAP C8), so
+    # both checks compare zeros here; model_replay_check holds the kernels
+    # on the replay's own (non-zero) operands
     field = gf.Field(P)
     k, vocab = eng.w.shape
     w_max = float(np.abs(eng.w).max() + 1e-9)
-    cards, errors, bounds, scales, nonzero = {}, [], [], [], {}
+    cards, errors, bounds, scales, nonzero, x_max = {}, [], [], [], {}, []
     for r, rep in zip(report.requests, eng._session._replays):
-        s = layers.choose_scales(k, float(np.abs(r.x).max() + 1e-9), w_max, P)
+        x_max.append(float(np.abs(r.x).max()))
+        s = layers.choose_scales(k, x_max[-1] + 1e-9, w_max, P)
         scales.append(s)
         if s not in cards:
             wq = eng._wq_cache[s]
@@ -1711,33 +1855,34 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
         aq = torch.as_tensor(field.encode(r.x, s), device="cuda").double()
         want = torch.remainder(aq @ cards[s], P).to(torch.int64).cpu().numpy()
         if rep.y.shape != (1,) + want.shape or not np.array_equal(rep.y[0], want):
-            raise AssertionError(f"[model] replay {rep.index}: field values differ from the "
+            raise AssertionError(f"[{tag}] replay {rep.index}: field values differ from the "
                                  "card's float64 product")
         x = r.x[: ns.batch]
         errors.append(float(np.abs(r.y[: ns.batch, :vocab] - x @ eng.w).max()))
         bounds.append(launcher.head_error_bound(x, eng.w, s))
         if errors[-1] > bounds[-1]:
-            raise AssertionError(f"[model] replay {rep.index}: |logit - x W| {errors[-1]} > "
+            raise AssertionError(f"[{tag}] replay {rep.index}: |logit - x W| {errors[-1]} > "
                                  f"bound {bounds[-1]}")
     if worst != max(errors):
-        raise AssertionError(f"[model] the launcher's worst {worst} != {max(errors)}")
+        raise AssertionError(f"[{tag}] the launcher's worst {worst} != {max(errors)}")
     del cards
-    log(f"[model] prefill {prefill_ms:.3f} ms ({ns.batch} x {ns.prompt_len} tokens); trunk "
+    log(f"[{tag}] prefill {prefill_ms:.3f} ms ({ns.batch} x {ns.prompt_len} tokens); trunk "
         f"per decode step {[round(t, 3) for t in trunk_ms]} ms; {steps} steps in "
         f"{decode_s:.2f} s (without the {replay_check['seconds']:.2f} s of the replay check)")
     for rec in replay_check["launches"]:
         slices = f" in column slices of {rec['plain_cols']}" if rec["plain_cols"] else ""
-        log(f"[model replay 0] {rec['site']:12s} {rec['shape']:44s} exact against plain"
+        log(f"[{tag} replay 0] {rec['site']:12s} {rec['shape']:44s} exact against plain"
             f"{slices}; non-zero a {rec['nonzero_a']:.4f}, b {rec['nonzero_b']:.4f}, out "
             f"{rec['nonzero_out']:.6f}")
-    log(f"[model] private head on {ns.workers} workers (PlanConfig() = AGE s=t=2, z=1; "
-        f"n_total {eng._session.plan.n_total}): every step served, none shed; each replay's "
-        f"field values exact against the card's float64 product; scales {scales}, encoded "
-        f"head non-zero {nonzero}; max |logit - x W| {[f'{e:.4e}' for e in errors]} <= bound "
+    log(f"[{tag}] private head [{k}, {vocab}] on {ns.workers} workers (PlanConfig() = AGE "
+        f"s=t=2, z=1; n_total {eng._session.plan.n_total}): every step served, none shed; each "
+        f"replay's field values exact against the card's float64 product; max |x| "
+        f"{[round(v, 4) for v in x_max]}, max |W| {w_max:.4f}, scales {scales}, encoded head "
+        f"non-zero {nonzero}; max |logit - x W| {[f'{e:.4e}' for e in errors]} <= bound "
         f"{[f'{b:.4e}' for b in bounds]}; launcher's worst {worst:.4e}; " + json.dumps(summary))
     for i, split in enumerate(splits):
-        log(f"[model time] replay {i}: " + json.dumps(split))
-    log(f"[model] launches by compiled kernel {by_kernel}; by shape "
+        log(f"[{tag} time] replay {i}: " + json.dumps(split))
+    log(f"[{tag}] launches by compiled kernel {by_kernel}; by shape "
         f"{json.dumps({n: {str(sh): c for sh, c in v.items()} for n, v in shapes.items()})}; "
         f"peak allocated {peak} bytes ({peak / 2**30:.2f} GiB) over the trunk steps and "
         f"replays 1-{len(splits) - 1}; {replay_check['peak']} bytes "
@@ -1745,28 +1890,29 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
         "(replay 0's operands held)")
     plan = eng._session.plan
     del model, hidden_step, engines, eng, report, cache, logits
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"plan": plan, "counts": shapes, "summary": summary, "splits": splits,
-            "prefill_ms": prefill_ms, "trunk_ms": trunk_ms, "init_s": init_s, "peak": peak,
-            "block": block, "errors": errors, "bounds": bounds,
-            "replay_check": replay_check["launches"]}
+    return {"plan": plan, "prefix": prefix, "counts": shapes, "summary": summary,
+            "splits": splits, "prefill_ms": prefill_ms, "trunk_ms": trunk_ms, "init_s": init_s,
+            "peak": peak, "block": block, "errors": errors, "bounds": bounds,
+            "dropped": dropped, "replay_check": replay_check["launches"]}
 
 
-def model_replay_check(torch, ref, captured: list, plan) -> list:
+def model_replay_check(torch, ref, captured: list, plan, prefix: str, tag: str) -> list:
     """The first lm-head replay's own launches (a, b, out, variant), each
     held against the plain version on its own operands, in column slices
     of at most ``REPLAY_SLICE_ELEMS`` elements of b or out.  The encoded
-    head is zero at k = 5120 (ROADMAP C8), but every share carries the
-    z = 1 random noise, so these operands are not, and neither are the
-    outputs of every site but H2 mix: a kernel that returned zeros, or
-    wrong values, fails here where the decoded field values would still
-    be exact.  Raises unless each H site launched once, agreed exactly,
-    had operands other than zero and an output (H2 mix: a b) at least
-    half non-zero.  Returns a record per site."""
-    names = {geometry(sa, sb): site for site, (sa, sb) in model_sites(plan).items()}
+    head is zero at k = 5120 and k = 2048 (ROADMAP C8), but every share
+    carries the z = 1 random noise, so these operands are not, and
+    neither are the outputs of every site but the mix (H2, D2): a kernel
+    that returned zeros, or wrong values, fails here where the decoded
+    field values would still be exact.  Raises unless each site launched
+    once, agreed exactly, had operands other than zero and an output
+    (the mix: a b) at least half non-zero.  Returns a record per site."""
+    names = {geometry(sa, sb): site for site, (sa, sb) in model_sites(plan, prefix).items()}
     shapes = [geometry(tuple(a.shape), tuple(b.shape)) for a, b, _, _ in captured]
     if sorted(shapes) != sorted(names):
-        raise AssertionError(f"[model replay 0] launches at {shapes}, expected {sorted(names)}")
+        raise AssertionError(f"[{tag} replay 0] launches at {shapes}, expected {sorted(names)}")
     records = []
     for (a, b, out, variant), shape in zip(captured, shapes):
         n = shape[-1]
@@ -1776,12 +1922,12 @@ def model_replay_check(torch, ref, captured: list, plan) -> list:
         frac = {f"nonzero_{k}": float(torch.count_nonzero(x)) / x.numel()
                 for k, x in (("a", a), ("b", b), ("out", out))}
         site = names[shape]
-        # H2 mix keeps only the coefficients of the workers' products that
-        # carry A W: zero while the head encodes to zero; its b, the
+        # the mix keeps only the coefficients of the workers' products
+        # that carry A W: zero while the head encodes to zero; its b, the
         # products themselves, must not be
-        live = frac["nonzero_b"] if site == "H2 mix" else frac["nonzero_out"]
+        live = frac["nonzero_b"] if site.endswith("2 mix") else frac["nonzero_out"]
         if err or not frac["nonzero_a"] or not frac["nonzero_b"] or live < 0.5:
-            raise AssertionError(f"[model replay 0] {site}: max abs error {err} against "
+            raise AssertionError(f"[{tag} replay 0] {site}: max abs error {err} against "
                                  f"plain, {frac}")
         records.append({"site": site, "shape": f"{list(a.shape)}@{list(b.shape)}",
                         "max_abs_err": err, "plain_cols": cols, **frac})
@@ -1789,24 +1935,24 @@ def model_replay_check(torch, ref, captured: list, plan) -> list:
     return records
 
 
-def model_sites(plan) -> dict:
+def model_sites(plan, prefix: str) -> dict:
     """Launch sites of one lm-head replay (one request): those of
     ``run_batch_over_pool`` (B) at batch 1 on the head engine's plan,
-    named H."""
-    return {"H" + name[1:]: shapes for name, shapes in edge_sites(plan, 1).items()
+    named with ``prefix`` (H: Mistral-NeMo-12B, D: DeepSeek-V2-Lite)."""
+    return {prefix + name[1:]: shapes for name, shapes in edge_sites(plan, 1).items()
             if name.startswith("B")}
 
 
 def model_entries(torch, K, ref, model_run: dict, args) -> list:
     """The lm-head replays' launch sites for the ``kernels`` line (the
-    ``[model]`` phase asserted their launches shape by shape), each timed
-    and held against its plain version, in column slices where the output
-    has more than ``PLAIN_SLICE_ELEMS`` elements."""
+    ``[model]`` / ``[moe]`` phase asserted their launches shape by
+    shape), each timed and held against its plain version, in column
+    slices where the output has more than ``PLAIN_SLICE_ELEMS`` elements."""
     plan, counts = model_run["plan"], model_run["counts"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed + 10)
     entries = []
-    for site, (sa, sb) in model_sites(plan).items():
+    for site, (sa, sb) in model_sites(plan, model_run["prefix"]).items():
         b_, m_, _, n_ = shape = geometry(sa, sb)
         compiled = f"int32_{K.choose_design('int32', False, *shape)}"
         cols = PLAIN_COLS if b_ * m_ * n_ > PLAIN_SLICE_ELEMS else 0
@@ -1817,7 +1963,7 @@ def model_entries(torch, K, ref, model_run: dict, args) -> list:
 
 
 # ----------------------------------------------------------------------
-# phase 10: the sharded Phase 2
+# phase 11: the sharded Phase 2
 # ----------------------------------------------------------------------
 SHARDED_MODES = ("all_to_all", "psum", "psum_scatter")
 # gloo ranks that share the one card in the d > 1 run (NCCL refuses two
@@ -2253,6 +2399,8 @@ def main() -> int:
     crt_run = phase_crt(torch, K, layers, protocol, planner, constructions, gf, ops, args)
     fuzz_run = phase_fuzz(K, fuzz, args)
     model_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args)
+    moe_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args,
+                          tag="moe")
     sharded_run = phase_sharded(torch, K, ref, protocol, distributed, planner, constructions,
                                 runtime, serve, scheduler, layers, gf, args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
@@ -2260,6 +2408,7 @@ def main() -> int:
     entries += edge_entries(torch, K, ref, edge_run, args)
     entries += serve_entries(torch, K, ref, serve_run, args)
     entries += model_entries(torch, K, ref, model_run, args)
+    entries += model_entries(torch, K, ref, moe_run, args)
     entries += sharded_entries(torch, K, ref, sharded_run, entries, args)
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
@@ -2268,7 +2417,7 @@ def main() -> int:
     on_path |= {n for counts in edge_run["counts"].values() for n in counts}
     on_path |= {n for run in serve_run["runs"].values() for n in run["counts"]}
     on_path |= {n for run in crt_run.values() for n in run["launches"]}
-    on_path |= set(model_run["counts"])
+    on_path |= set(model_run["counts"]) | set(moe_run["counts"])
     on_path |= {compiled for compiled, _ in sharded_run["counts"]}
     for name in on_path:
         if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
@@ -2277,7 +2426,7 @@ def main() -> int:
         f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
         f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes; "
         f"serve peak {serve_run['peak']} bytes; fuzz {fuzz_run['cases']} cases clean; "
-        f"model peak {model_run['peak']} bytes; sharded peak {max(sharded_run['peaks'].values())} "
+        f"model peak {model_run['peak']} bytes; moe peak {moe_run['peak']} bytes; sharded peak {max(sharded_run['peaks'].values())} "
         f"bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)

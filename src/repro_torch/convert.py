@@ -113,9 +113,11 @@ def _check_names(what: str, got: dict, want: dict) -> None:
 
 
 def decoder_params_from_reference(cfg, params: dict) -> dict:
-    """A state dict for the port's dense ``Model`` of ``cfg`` from the
+    """A state dict for the port's ``Model`` of ``cfg`` from the
     reference's parameter tree (nested dicts of numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``): dotted names, float32 CPU
+    ``jax.tree.map(np.asarray, params)``; an MoE model's ``moe`` and
+    ``dense_layer_{i}`` subtrees and MLA's ``attn.w_dkv`` / ``w_uk`` /
+    ``w_uv`` included): dotted names, float32 CPU
     tensors; ``load_state_dict`` casts each into the dtype the model
     keeps it in.  Raises ``ValueError`` on a missing, unknown or
     misshapen weight."""
@@ -126,11 +128,18 @@ def decoder_params_from_reference(cfg, params: dict) -> dict:
 
 def decoder_cache_from_reference(cfg, caches: dict) -> dict:
     """The port's cache tree on the CPU from the reference's (numpy
-    arrays: bfloat16 K/V buffers as float32 or as ml_dtypes bfloat16,
-    int32 write positions), each leaf in the port's cache dtype.  Raises
-    ``ValueError`` on a missing, unknown or misshapen leaf."""
-    k = np.asarray(caches["layers"]["k"])
-    spec = dict(iter_leaves(lm.decoder_cache_abstract(cfg, k.shape[1], k.shape[2])))
+    arrays: bfloat16 K/V or MLA ``c`` / ``k_rope`` buffers as float32 or
+    as ml_dtypes bfloat16, int32 write positions; the stacked ``layers``
+    and any ``dense_{i}`` of a dense prologue), each leaf in the port's
+    cache dtype.  Batch and length come from the stacked ``k`` (``c``
+    under MLA).  Raises ``ValueError`` on a missing, unknown or
+    misshapen leaf."""
+    lead = "c" if cfg.mla else "k"
+    layers = caches.get("layers")
+    if not isinstance(layers, dict) or lead not in layers or np.ndim(layers[lead]) < 3:
+        raise ValueError(f"reference caches: no stacked layers.{lead} [layers, batch, len, ...]")
+    shape = np.shape(layers[lead])
+    spec = dict(iter_leaves(lm.decoder_cache_abstract(cfg, shape[1], shape[2])))
     got = dict(iter_leaves(caches))
     _check_names("reference caches", got, spec)
     out: dict = {}

@@ -1,7 +1,8 @@
-"""Serving launcher: batched prefill + greedy decode of a dense decoder.
+"""Serving launcher: batched prefill + greedy decode of a decoder.
 
     python -m repro_torch.launch.serve --arch mistral-nemo-12b --reduced \\
         --batch 4 --prompt-len 32 --gen-len 32 [--private-head] [--device cpu]
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --private-head
 
 The counterpart of ``repro.launch.serve``, with its flags, prompts,
 traces and printed lines.  ``--private-head`` keeps the transformer
@@ -15,7 +16,11 @@ simulated protocol time.
 The port runs on one device: ``--mesh`` takes ``elastic`` or ``1x1``,
 both meaning that device.  A ``(data, model)`` mesh of several devices
 shards the model (``distributed/sharding.py``) and waits for ROADMAP
-item 13.  Only the dense decoder is ported (ROADMAP item 12).
+item 13.  The decoder families are ported: dense, and moe (DBRX's GQA
+trunk, DeepSeek-V2's MLA trunk with its dense first layer); vlm,
+encoder-decoder, ssm and hybrid wait for ROADMAP item 12.  The private
+head takes every decoder alike: DeepSeek-V2-Lite's is ``[2048, 102400]``
+float32.
 """
 import argparse
 import time

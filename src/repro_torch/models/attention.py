@@ -1,14 +1,15 @@
-"""Attention blocks: GQA with optional QKV bias.
+"""Attention blocks: GQA with optional QKV bias, and MLA (DeepSeek-V2
+latent attention with a compressed KV cache).
 
-The counterpart of the GQA half of ``repro.models.attention``, for
-the dense decoder's causal self-attention with RoPE.  A KV cache is a
-preallocated fixed-length buffer; ``gqa_attention`` writes the new
-tokens into the buffers it is given, in place, and returns them (the
-reference returns new arrays; ``lm._trunk`` copies the stacked caches
-once per step, so a caller's cache is left as it was).  MLA,
-cross-attention and the options the reference's encoder-decoder and vlm
-models set (``kv_x``, ``causal``, ``use_rope``, ``kv_valid``) wait for
-those models (ROADMAP item 12).
+The counterpart of the GQA and MLA parts of ``repro.models.attention``,
+for the decoders' causal self-attention with RoPE.  A KV cache is a
+preallocated fixed-length buffer; ``gqa_attention`` and
+``mla_attention`` write the new tokens into the buffers they are given,
+in place, and return them (the reference returns new arrays;
+``lm._trunk`` copies the caches once per step, so a caller's cache is
+left as it was).  Cross-attention and the options the reference's
+encoder-decoder and vlm models set (``kv_x``, ``causal``, ``use_rope``,
+``kv_valid``) wait for those models (ROADMAP item 12).
 
 The reference's ``constrain`` calls are dropped: without sharding rules
 they do nothing, and one device has none.
@@ -97,8 +98,8 @@ def _sdpa_chunked(
     reference's: -1e30 for masked scores, a float32 running max, sum and
     accumulator, ``acc / max(l, 1e-30)`` at the end.  The reference's two
     ``scan``s are loops over the same chunks; its ``kv_limit`` and
-    ``kv_valid`` masks, which the dense decoder never sets, wait for the
-    models that do (ROADMAP item 12)."""
+    ``kv_valid`` masks, which the decoders never set, wait for the models
+    that do (ROADMAP item 12)."""
     b, tq, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -185,5 +186,77 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
     return {
         "k": ShapeDtype((batch, max_len, kv, hd), torch.bfloat16),
         "v": ShapeDtype((batch, max_len, kv, hd), torch.bfloat16),
+        "idx": ShapeDtype((), torch.int32),
+    }
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV with a decoupled RoPE head
+# ----------------------------------------------------------------------
+def mla_params(cfg: ModelConfig) -> Dict[str, ParamInfo]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": ParamInfo((d, h * qd), ("embed", "heads")),
+        "w_dkv": ParamInfo((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None)),
+        "w_uk": ParamInfo((m.kv_lora_rank, h * m.qk_nope_head_dim), (None, "heads")),
+        "w_uv": ParamInfo((m.kv_lora_rank, h * m.v_head_dim), (None, "heads")),
+        "wo": ParamInfo((h * m.v_head_dim, d), ("heads", "embed")),
+    }
+
+
+def mla_attention(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # [B, T, d]
+    positions: torch.Tensor,  # [B, T]
+    cfg: ModelConfig,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Absorbed-form MLA, as the reference: with q' = [q_nope W_uk |
+    rope(q_rope)] and k' = [c | rope(k_rope)] the score is a single-KV-head
+    attention in the (r + rd)-dim latent space with v' = c, so
+    ``_sdpa_chunked`` is reused and the cache holds only c and k_rope."""
+    m = cfg.mla
+    h = cfg.num_heads
+    dt = x.dtype
+    b, t, _ = x.shape
+    nd, rd, vd, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+
+    q = (x @ p["wq"].to(dt)).reshape(b, t, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = x @ p["w_dkv"].to(dt)  # [B, T, r + rd]
+    c, k_rope = ckv[..., :r], ckv[..., r:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache is not None:
+        idx = cache["idx"]
+        slots = idx.long() + torch.arange(t, device=x.device)
+        cc = cache["c"].index_copy_(1, slots, c.to(cache["c"].dtype))
+        ck = cache["k_rope"].index_copy_(1, slots, k_rope.to(cache["k_rope"].dtype))
+        new_cache = {"c": cc, "k_rope": ck, "idx": idx.add_(t)}
+        c, k_rope = cc.to(dt), ck.to(dt)
+        q_positions = slots
+    else:
+        new_cache = None
+        q_positions = torch.arange(t, device=x.device)
+
+    q_lat = torch.einsum("bthn,rhn->bthr", q_nope, p["w_uk"].to(dt).reshape(r, h, nd))
+    q_prime = torch.cat([q_lat, q_rope], dim=-1)  # [B, T, H, r + rd]
+    k_prime = torch.cat([c, k_rope], dim=-1)[:, :, None, :]  # [B, S, 1, r + rd]
+    ctx = _sdpa_chunked(
+        q_prime, k_prime, c[:, :, None, :], 1.0 / math.sqrt(nd + rd), q_positions=q_positions,
+    ).reshape(b, t, h, r)
+    out = torch.einsum("bthr,rhv->bthv", ctx, p["w_uv"].to(dt).reshape(r, h, vd))
+    return out.reshape(b, t, h * vd) @ p["wo"].to(dt), new_cache
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    m = cfg.mla
+    return {
+        "c": ShapeDtype((batch, max_len, m.kv_lora_rank), torch.bfloat16),
+        "k_rope": ShapeDtype((batch, max_len, m.qk_rope_head_dim), torch.bfloat16),
         "idx": ShapeDtype((), torch.int32),
     }

@@ -1,24 +1,32 @@
 """Decoder-only language models.
 
 The counterpart of the decoder-only half of ``repro.models.lm``, for the
-dense family.  The trunk's parameters are *stacked* along a leading
-``layers`` axis as in the reference, so its weights carry across one to
-one; caches are stacked the same way.
+dense and moe families (GQA or MLA attention, an MLP or a token-choice
+MoE, deepseek-style dense first layers).  The trunk's parameters are
+*stacked* along a leading ``layers`` axis as in the reference, so its
+weights carry across one to one; a dense prologue layer ``i`` of an MoE
+model is ``dense_layer_{i}`` beside the stack, as there.  Caches are
+stacked the same way, with ``dense_{i}`` beside them.
 
 Deliberate differences:
 
-* ``_trunk`` is a Python loop over the stacked layers.  The reference
-  scans them (``scan_layers``) under a remat policy (``remat_policy``);
-  on one device and without gradients both change only how JAX compiles
-  the program, so here they have no effect.
+* ``_trunk`` is a Python loop over the dense prologue and the stacked
+  layers.  The reference scans the stack (``scan_layers``) under a remat
+  policy (``remat_policy``); on one device and without gradients both
+  change only how JAX compiles the program, so here they have no effect.
 * ``stored_infos`` keeps each weight that the reference casts to
   ``compute_dtype`` before every use in that dtype (the forward computes
   the same numbers from half the bytes); ``lm_head`` and a tied
-  ``embed`` stay float32, as ``head_matrix`` reads them.
+  ``embed`` stay float32, as ``head_matrix`` reads them.  That includes
+  the MoE router and expert stacks, which the reference also casts
+  before each use.
+* ``decoder_forward`` returns two values.  The reference's third, the
+  MoE auxiliary loss, only feeds ``decoder_loss``, which waits for
+  training (ROADMAP item 13); ``_trunk`` sums it all the same.
 
 The reference's ``constrain`` calls are dropped (no-ops without sharding
-rules).  ``decoder_loss`` waits for training (ROADMAP item 13); MoE,
-MLA, vlm and encoder-decoder for their models (item 12).
+rules).  The vlm, encoder-decoder, ssm and hybrid families wait for
+their models (item 12).
 """
 from __future__ import annotations
 
@@ -28,18 +36,30 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import gqa_attention, gqa_cache_spec, gqa_params
+from .attention import (
+    gqa_attention,
+    gqa_cache_spec,
+    gqa_params,
+    mla_attention,
+    mla_cache_spec,
+    mla_params,
+)
 from .common import ParamInfo, ShapeDtype, iter_leaves, map_tree, rms_norm
-from .ffn import mlp, mlp_params
+from .ffn import mlp, mlp_params, moe_ffn, moe_params
+
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def _not_ported(cfg: ModelConfig) -> None:
-    if cfg.moe or cfg.mla or cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            + (" with MoE" if cfg.moe else "") + (" with MLA" if cfg.mla else "")
-            + " is not ported yet (ROADMAP item 12); only the dense decoder is"
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP item 12); "
+            f"only the decoder families {PORTED_FAMILIES} are"
         )
+
+
+def _dense_layers(cfg: ModelConfig):
+    return sorted(set(cfg.moe.dense_layers)) if cfg.moe else []
 
 
 def stack_infos(tree, n: int):
@@ -55,15 +75,20 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # ----------------------------------------------------------------------
 # decoder-only block
 # ----------------------------------------------------------------------
-def _block_infos(cfg: ModelConfig) -> Dict[str, Any]:
+def _block_infos(cfg: ModelConfig, moe_layer: bool) -> Dict[str, Any]:
     _not_ported(cfg)
     d = cfg.d_model
-    return {
+    p: Dict[str, Any] = {
         "ln_attn": ParamInfo((d,), ("embed",), init="ones"),
         "ln_mlp": ParamInfo((d,), ("embed",), init="ones"),
-        "attn": gqa_params(cfg),
-        "mlp": mlp_params(d, cfg.d_ff),
+        "attn": mla_params(cfg) if cfg.mla else gqa_params(cfg),
     }
+    if moe_layer and cfg.moe:
+        p["moe"] = moe_params(cfg)
+    else:
+        ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) else cfg.d_ff
+        p["mlp"] = mlp_params(d, ff)
+    return p
 
 
 def _scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
@@ -78,14 +103,22 @@ def _block_apply(
     x: torch.Tensor,
     positions: torch.Tensor,
     cache: Optional[Dict] = None,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """(output, the layer's cache, the MoE aux term: float32 0 for an
+    MLP layer)."""
     res_scale = _scalar(cfg.scale_residual, x.dtype)
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    attn_out, new_cache = gqa_attention(p["attn"], h, positions, cfg, cache=cache)
+    attend = mla_attention if cfg.mla else gqa_attention
+    attn_out, new_cache = attend(p["attn"], h, positions, cfg, cache=cache)
     x = x + attn_out * res_scale
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + mlp(p["mlp"], h) * res_scale
-    return x, new_cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        ffn_out, aux = moe_ffn(p["moe"], h, cfg)
+    else:
+        ffn_out = mlp(p["mlp"], h)
+    x = x + ffn_out * res_scale
+    return x, new_cache, aux
 
 
 # ----------------------------------------------------------------------
@@ -93,11 +126,14 @@ def _block_apply(
 # ----------------------------------------------------------------------
 def decoder_abstract(cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.padded_vocab
+    dense = _dense_layers(cfg)
     params: Dict[str, Any] = {
         "embed": ParamInfo((v, d), ("vocab", "embed"), init="embed"),
         "final_norm": ParamInfo((d,), ("embed",), init="ones"),
-        "layers": stack_infos(_block_infos(cfg), cfg.num_layers),
+        "layers": stack_infos(_block_infos(cfg, moe_layer=True), cfg.num_layers - len(dense)),
     }
+    for i in dense:
+        params[f"dense_layer_{i}"] = _block_infos(cfg, moe_layer=False)
     if not cfg.tie_embeddings:
         params["lm_head"] = ParamInfo((d, v), ("embed", "vocab"))
     return params
@@ -106,8 +142,8 @@ def decoder_abstract(cfg: ModelConfig) -> Dict[str, Any]:
 def stored_infos(cfg: ModelConfig, infos: Dict[str, Any]) -> Dict[str, Any]:
     """``infos`` with the dtype each weight is kept in: ``compute_dtype``
     for every weight the reference casts to it before each use (the
-    attention and MLP matrices, the norm weights, an untied ``embed``),
-    float32 for ``lm_head`` and a tied ``embed``."""
+    attention, MLP and MoE matrices, the router, the norm weights, an
+    untied ``embed``), float32 for ``lm_head`` and a tied ``embed``."""
     dt = compute_dtype(cfg)
     keep = {"lm_head"} | ({"embed"} if cfg.tie_embeddings else set())
     return map_tree(lambda name, i: i if name in keep else dataclasses.replace(i, dtype=dt), infos)
@@ -120,21 +156,28 @@ def _trunk(
     positions: torch.Tensor,
     caches: Optional[Dict] = None,
 ):
-    """Run all blocks: a loop over the stacked ``layers`` axis (the
-    reference's scan; ``scan_layers`` and ``remat_policy`` have no
-    effect here).  The caches are copied once, and each layer writes its
-    tokens into its slice of the copy: the caller's are left as they
-    were."""
-    stacked = params["layers"]
-    n = next(iter_leaves(stacked))[1].shape[0]
+    """Run all blocks: the dense prologue layers, then a loop over the
+    stacked ``layers`` axis (the reference's scan; ``scan_layers`` and
+    ``remat_policy`` have no effect here).  The caches are copied once,
+    and each layer writes its tokens into its own copy or its slice of
+    the stacked copy: the caller's are left as they were.  Returns (x,
+    new caches, the summed MoE aux terms)."""
     new_caches = None
     if caches is not None:
-        new_caches = dict(caches, layers={k: c.clone() for k, c in caches["layers"].items()})
+        new_caches = map_tree(lambda _, c: c.clone(), caches)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in _dense_layers(cfg):
+        cl = None if caches is None else new_caches[f"dense_{i}"]
+        x, _, aux = _block_apply(cfg, params[f"dense_layer_{i}"], x, positions, cl)
+        aux_total = aux_total + aux
+    stacked = params["layers"]
+    n = next(iter_leaves(stacked))[1].shape[0]
     for i in range(n):
         pl = map_tree(lambda _, a: a[i], stacked)
         cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
-        x, _ = _block_apply(cfg, pl, x, positions, cl)
-    return x, new_caches
+        x, _, aux = _block_apply(cfg, pl, x, positions, cl)
+        aux_total = aux_total + aux
+    return x, new_caches, aux_total
 
 
 def _head(cfg: ModelConfig, params) -> torch.Tensor:
@@ -164,9 +207,10 @@ def decoder_forward(
     positions=None,
     head_mode: str = "full",
 ):
-    """Returns (logits | hidden, new_caches); the reference's third
-    value, the MoE auxiliary loss, comes with MoE.  ``batch["tokens"]``
-    and ``positions`` may be numpy arrays or tensors; they move to the
+    """Returns (logits | hidden, new_caches).  The reference's third
+    value, the MoE auxiliary loss, feeds only ``decoder_loss`` (training,
+    ROADMAP item 13) and is not returned.  ``batch["tokens"]`` and
+    ``positions`` may be numpy arrays or tensors; they move to the
     parameters' device."""
     _not_ported(cfg)
     dt = compute_dtype(cfg)
@@ -177,16 +221,21 @@ def decoder_forward(
         positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
     else:
         positions = torch.as_tensor(positions, device=dev)
-    x, new_caches = _trunk(cfg, params, x, positions, caches)
+    x, new_caches, _ = _trunk(cfg, params, x, positions, caches)
     return _logits(cfg, params, x, head_mode), new_caches
 
 
 def decoder_cache_abstract(cfg: ModelConfig, batch: int, max_len: int):
     _not_ported(cfg)
-    per_layer = gqa_cache_spec(cfg, batch, max_len)
-    return {
-        "layers": {k: ShapeDtype((cfg.num_layers,) + s.shape, s.dtype) for k, s in per_layer.items()}
+    per_layer = (mla_cache_spec if cfg.mla else gqa_cache_spec)(cfg, batch, max_len)
+    dense = _dense_layers(cfg)
+    n_scan = cfg.num_layers - len(dense)
+    caches: Dict[str, Any] = {
+        "layers": {k: ShapeDtype((n_scan,) + s.shape, s.dtype) for k, s in per_layer.items()}
     }
+    for i in dense:
+        caches[f"dense_{i}"] = dict(per_layer)
+    return caches
 
 
 def decoder_decode_step(cfg: ModelConfig, params, tokens, caches, positions):

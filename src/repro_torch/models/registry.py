@@ -1,13 +1,15 @@
 """Model registry: ``build_model(cfg)`` for the serving path.
 
-The counterpart of ``repro.models.registry`` for ``family == "dense"``.
-A :class:`Model` is a ``torch.nn.Module`` whose parameters keep the
-reference's tree and names (``embed``, ``final_norm``, ``lm_head``,
-``layers.attn.wq``, ``layers.mlp.w_gate`` ...; the trunk stacked along
-a leading layers axis), so the reference's weights load one to one
-(``convert.decoder_params_from_reference`` then ``load_state_dict``).
-It serves and does not train: its parameters hold no gradients.  Every
-other family raises ``NotImplementedError`` naming ROADMAP item 12.
+The counterpart of ``repro.models.registry`` for the decoder families
+``dense`` and ``moe``.  A :class:`Model` is a ``torch.nn.Module`` whose
+parameters keep the reference's tree and names (``embed``,
+``final_norm``, ``lm_head``, ``layers.attn.wq``, ``layers.mlp.w_gate``,
+``layers.moe.router``, ``dense_layer_0.attn.w_dkv`` ...; the trunk
+stacked along a leading layers axis), so the reference's weights load
+one to one (``convert.decoder_params_from_reference`` then
+``load_state_dict``).  It serves and does not train: its parameters hold
+no gradients.  Every other family (vlm, encdec, ssm, hybrid) raises
+``NotImplementedError`` naming ROADMAP item 12.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def _tree(module: torch.nn.Module) -> ParamTree:
 
 
 class Model(torch.nn.Module):
-    """A dense decoder holding its parameters; the methods are the
+    """A decoder holding its parameters; the methods are the
     reference ``Model``'s serving callables with the parameters bound:
     ``prefill(batch, caches)``, ``decode_step(tokens, caches,
     positions)``, ``hidden_step(tokens, caches, positions)``,
@@ -85,15 +87,16 @@ class Model(torch.nn.Module):
         return lm.decoder_cache_abstract(self.cfg, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int):
-        """Concrete initial caches on the model's device, all zero (the
-        reference's -1e30 fill of ssm stabiliser leaves comes with the
-        ssm families)."""
+        """Concrete initial caches on the model's device, all zero: the
+        stacked GQA or MLA buffers and those of the dense prologue layers
+        (the reference's -1e30 fill of ssm stabiliser leaves comes with
+        the ssm families)."""
         return map_tree(lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
                         self.cache_abstract(batch, max_len))
 
 
 def build_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
-    """A dense decoder with weights drawn by ``materialize`` from a
+    """A decoder with weights drawn by ``materialize`` from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (default:
     the GPU), each weight in the dtype ``lm.stored_infos`` gives it."""
     lm._not_ported(cfg)

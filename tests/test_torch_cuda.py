@@ -2,8 +2,8 @@
 the batched engine, the edge runtime, the serving engine and the CRT
 route through the kernels against the same entry points on the CPU; the
 fuzz harness on the kernel engines, and ``autotune_tiles``; the reduced
-dense decoder and the launcher's private head on the card against the
-CPU.
+dense decoder, the reduced DeepSeek-V2-Lite (MLA and MoE) and the
+launcher's private head on the card against the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports torch, numpy and the port only, so it runs on a machine without
@@ -382,9 +382,8 @@ def test_autotune_tiles_on_the_card(cuda, backend, shape, monkeypatch):
 MODEL_TOL = {"float32": lambda ref: 2e-4, "bfloat16": lambda ref: 2.0**-5 * ref.abs().max().item()}
 
 
-def _model_pair(cuda, dtype):
-    cfg = dataclasses.replace(configs.reduced(configs.get_config("mistral-nemo-12b")),
-                              compute_dtype=dtype)
+def _model_pair(cuda, dtype, arch="mistral-nemo-12b"):
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)), compute_dtype=dtype)
     cpu = build_model(cfg, seed=5, device="cpu")
     card = build_model(cfg, seed=6, device=cuda)
     card.load_state_dict(cpu.state_dict())
@@ -438,6 +437,45 @@ def test_private_head_on_the_card_equals_the_cpu_run(cuda):
     assert out["card"][1:3] == out["cpu"][1:3]
     for a, b in zip(out["card"][3], out["cpu"][3]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_reduced_deepseek_on_the_card_equals_the_cpu_run(cuda):
+    """Reduced DeepSeek-V2-Lite (MLA, a dense first layer, MoE) at
+    float32 with TF32 off: prefill and three decode steps on the card
+    against the CPU on the same weights, both feeding the CPU's greedy
+    tokens.  The c / k_rope caches are held in float32 here: in the
+    bfloat16 buffers a last-bit difference between the two sides can
+    flip a rounding (observed: 3.2e-4 on logits of magnitude ~4), which
+    the Mistral test above already covers.  So logits and caches within
+    the float32 tolerance of ``tests/test_torch_moe.py`` (one rounding per
+    operation in another order), and the same greedy tokens."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card = _model_pair(cuda, "float32", "deepseek-v2-lite-16b")
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        cache = {g: {n: c.float() if c.is_floating_point() else c for n, c in leaves.items()}
+                 for g, leaves in model.init_cache(2, 11).items()}
+        logits, cache = model.prefill({"tokens": prompts}, cache)
+        steps = [logits.cpu()]
+        for i in range(3):  # both feed the CPU run's greedy tokens
+            lead = steps if name == "cpu" else out["cpu"][0]
+            tok = launcher.argmax_last(lead[i], cfg.vocab_size)
+            logits, cache = model.decode_step(tok[:, None], cache, np.full((2, 1), 8 + i, np.int32))
+            steps.append(logits.cpu())
+        out[name] = (steps, {f"{g}.{n}": c.cpu() for g in cache for n, c in cache[g].items()})
+    (lc, cc), (lg, cg) = out["cpu"], out["card"]
+    assert sorted(cc) == sorted(cg) and "dense_0.c" in cc and "layers.k_rope" in cc
+    for a, b in zip(lc, lg):
+        assert torch.allclose(b, a, rtol=1e-4, atol=2e-4), (b - a).abs().max().item()
+        np.testing.assert_array_equal(launcher.argmax_last(b, cfg.vocab_size),
+                                      launcher.argmax_last(a, cfg.vocab_size))
+    for k in cc:
+        if k.endswith("idx"):
+            assert torch.equal(cc[k], cg[k])
+        else:
+            assert cg[k].dtype == torch.float32, k
+            assert torch.allclose(cg[k], cc[k], rtol=1e-4, atol=2e-4), k
 
 
 def test_launcher_private_head_runs_on_the_card(cuda):
