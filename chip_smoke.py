@@ -107,7 +107,27 @@ Phases (each raises on failure; the exit code is then not 0):
              both sides with TF32 off: the same top-6 experts for every
              token whose 6th and 7th router probabilities are more than
              1e-6 apart, the outputs within 2**-12 of the largest;
-11. sharded — the sharded Phase 2 (``repro_torch.core.distributed``) at
+11. vlm    — with DeepSeek freed, InternVL2-26B at full width and depth
+             (48 layers, d_model 6144, 48 x 128 heads, 8 KV heads, d_ff
+             16384, vocab 92553 padded to 92672; 19,862,722,560 random
+             parameters from ``--seed``): a prefill of 1024 patch
+             embeddings (normals from ``--seed``) and the 32-token prompt,
+             then the same launcher path and checks as ``model`` from
+             position 1056 (lm head [6144, 92672]); layer 0 card
+             (bfloat16) against CPU (float32) over the patches and the
+             prompt's embeddings;
+12. encdec — with InternVL2 freed, SeamlessM4T-Large-v2 at full width and
+             depth (24 encoder + 24 decoder layers, d_model 1024, 16 x 64
+             heads, d_ff 8192, vocab 256206 padded to 256256; 2.03 B
+             parameters) through ``launch.serve.main`` in process (batch
+             4, 4096 frames, gen 8; the plain decode: an encoder-decoder
+             has no private head): the launcher's prefill and decode ms,
+             every step's logits finite, the peak device memory; encoder
+             layer 0 and decoder block 0 (cross-attention over a padded
+             encoder output with ``enc_len``) card (bfloat16) against CPU
+             (float32); ``--private-head`` refused with the reference's
+             message.  No TPU kernel runs in this phase;
+13. sharded — the sharded Phase 2 (``repro_torch.core.distributed``) at
              the main path's width: a one-rank NCCL group from a
              ``HashStore`` and its ``workers`` mesh on the card;
              ``run_batched_sharded`` in all_to_all, psum and psum_scatter
@@ -126,13 +146,14 @@ Phases (each raises on failure; the exit code is then not 0):
              (every y exact); then 4 gloo ranks sharing the card (n_total
              17 padded to 20): every rank's Y exact in every mode and its
              I equal to the dense Phase 2's;
-12. timing — each kernel at each launch site of its paths (the
+14. timing — each kernel at each launch site of its paths (the
              ``run_batched`` sites, the edge runtime's, a serving
              replay's at n_total 21 and one request, the lm-head
-             replays', H and D, at n_total 16, and any shape the sharded
-             phase launched that no other site has; the plain version
-             of the 10.7 GB H1 share B and the 3.4 GB D1 share B in
-             column slices): exact against the plain version,
+             replays', H, D and V, at n_total 16, and any shape the
+             sharded phase launched that no other site has; the plain
+             version of the 10.7 GB H1 share B, the 3.4 GB D1 share B and
+             the 9.1 GB V1 share B in column slices): exact against the
+             plain version,
              CUDA-event time, device time of launches
              queued back to back (behind a busy-wait kernel), plain
              version, bound, library call, design; printed as one JSON
@@ -1534,13 +1555,14 @@ def phase_fuzz(K, fuzz, args) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phases 9 and 10: the decoders and the launcher's private head
+# phases 9, 10 and 11: the decoders and the launcher's private head
 # ----------------------------------------------------------------------
 # phase tag -> (arch, the prefix of its lm-head launch sites)
-MODEL_PHASES = {"model": ("mistral-nemo-12b", "H"), "moe": ("deepseek-v2-lite-16b", "D")}
+MODEL_PHASES = {"model": ("mistral-nemo-12b", "H"), "moe": ("deepseek-v2-lite-16b", "D"),
+                "vlm": ("internvl2-26b", "V")}
 # the launch sites of one lm-head replay, [4, k] @ [k, vocab] on 16
 # workers (AGE s = t = 2, z = 1): Mistral's head is [5120, 131072],
-# DeepSeek's [2048, 102400]
+# DeepSeek's [2048, 102400], InternVL2's [6144, 92672]
 MODEL_SITES = {
     "model": {"H1 share A": ((16, 5), (1, 5, 5120)), "H1 share B": ((16, 5), (1, 5, 167772160)),
               "H2 multiply": ((16, 2, 2560), (16, 2560, 65536)),
@@ -1548,9 +1570,14 @@ MODEL_SITES = {
     "moe": {"D1 share A": ((16, 5), (1, 5, 2048)), "D1 share B": ((16, 5), (1, 5, 52428800)),
             "D2 multiply": ((16, 2, 1024), (16, 1024, 51200)),
             "D2 mix": ((16, 14), (14, 102400)), "D2 noise": ((16, 1), (1, 102400))},
+    "vlm": {"V1 share A": ((16, 5), (1, 5, 6144)), "V1 share B": ((16, 5), (1, 5, 142344192)),
+            "V2 multiply": ((16, 2, 3072), (16, 3072, 46336)),
+            "V2 mix": ((16, 14), (14, 92672)), "V2 noise": ((16, 1), (1, 92672))},
 }
-# the sum of decoder_abstract's leaves at DeepSeek-V2-Lite-16B's full width
-MOE_PARAMS = 15_706_470_400
+# the sum of decoder_abstract's leaves at full width: DeepSeek-V2-Lite-16B,
+# and InternVL2-26B (param_count() 19,860,664,320 leaves out the norms and
+# the vocabulary's padding to 92,672)
+PHASE_PARAMS = {"moe": 15_706_470_400, "vlm": 19_862_722_560}
 # the launcher's --private-head path at batch 4, prompt 32, gen 4: three
 # lm-head replays through the ServingEngine on 16 workers
 MODEL_ARGS = dict(batch=4, prompt_len=32, gen_len=4, workers=16)
@@ -1577,8 +1604,11 @@ PLAIN_SLICE_ELEMS = 1 << 29
 PLAIN_COLS = 1 << 23
 # the replay check's column slices hold at most this many elements of b
 # or of the output each: the plain version makes two float32 limb copies
-# of its b slice, beside the model and the replay's own operands
-REPLAY_SLICE_ELEMS = 1 << 28
+# of its b slice and about ten int64 temporaries of its output slice,
+# beside the model and the replay's own operands.  2**27 (was 2**28):
+# beside InternVL2's 38 GiB trunk, 2**28's ~20 GiB of temporaries would
+# take the peak to ~77 of the card's 79 GiB
+REPLAY_SLICE_ELEMS = 1 << 27
 
 
 def first_layer(params: dict, map_tree) -> dict:
@@ -1587,15 +1617,17 @@ def first_layer(params: dict, map_tree) -> dict:
     return params.get("dense_layer_0") or map_tree(lambda _, a: a[0], params["layers"])
 
 
-def model_block(torch, lm, map_tree, cfg, model, prompts, tag) -> dict:
-    """Layer 0 of the model on the prompt's embeddings: on the card in
-    bfloat16 and on the CPU in float32, from the same (bfloat16-stored)
-    weights; raises past ``MODEL_BLOCK_TOL``.  Returns the errors and
-    the CPU's output (``cpu_out``)."""
+def model_block(torch, lm, map_tree, cfg, model, prompts, tag, patches=None) -> dict:
+    """Layer 0 of the model on the prompt's embeddings (after a vlm's
+    ``patches``): on the card in bfloat16 and on the CPU in float32, from
+    the same (bfloat16-stored) weights; raises past ``MODEL_BLOCK_TOL``.
+    Returns the errors and the CPU's output (``cpu_out``)."""
     params = model.params()
     layer0 = first_layer(params, map_tree)
     tokens = torch.as_tensor(prompts, device="cuda").long()
     x = lm._embed_tokens(cfg, params, tokens, torch.bfloat16)
+    if patches is not None:
+        x = torch.cat([torch.as_tensor(patches, device="cuda").to(torch.bfloat16), x], dim=1)
     pos = torch.arange(x.shape[1], device="cuda").expand(x.shape[:2])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1682,7 +1714,9 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
     (random weights from ``--seed``), and the launcher's private-head
     decode over it: prefill, then each step's trunk on the card and its
     lm-head matmul replayed under CMPC by the ServingEngine on ``auto``.
-    Frees the model before it returns."""
+    A vlm's prefill puts ``frontend_len`` patch embeddings (normals from
+    ``--seed``) before the prompt, and its decode positions start after
+    both.  Frees the model before it returns."""
     import gc
 
     import numpy as np
@@ -1699,12 +1733,13 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     t0 = time.perf_counter()
     model = build_model(cfg, seed=args.seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    if n_params != count_params(lm.decoder_abstract(cfg)) or (cfg.moe and n_params != MOE_PARAMS):
+    if {n_params} != {count_params(lm.decoder_abstract(cfg)), PHASE_PARAMS.get(tag, n_params)}:
         raise AssertionError(f"[{tag}] {n_params} parameters")
     attn = (f"MLA (kv_lora {cfg.mla.kv_lora_rank}, rope {cfg.mla.qk_rope_head_dim}, nope "
             f"{cfg.mla.qk_nope_head_dim}, v {cfg.mla.v_head_dim})" if cfg.mla
@@ -1719,9 +1754,18 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
         f"{cfg.compute_dtype}, lm_head float32: {torch.cuda.memory_allocated() - before} bytes "
         f"({before} allocated before); init {init_s:.2f} s")
 
-    max_len = ns.prompt_len + ns.gen_len
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (ns.batch, ns.prompt_len)).astype(np.int32)
+    batch, patches = {"tokens": prompts}, None
+    if cfg.family == "vlm":
+        patches = np.random.default_rng(args.seed).normal(
+            size=(ns.batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        batch["patches"] = patches
+        # the decode positions follow the patches and the prompt
+        ns.prompt_len += cfg.frontend_len
+        log(f"[{tag}] prefill of {cfg.frontend_len} patch embeddings (normals from seed "
+            f"{args.seed}) then {len(prompts[0])} tokens; decode positions from {ns.prompt_len}")
+    max_len = ns.prompt_len + ns.gen_len
     # warm-up prefill; on an MoE model it also counts the capacity drops
     drops, dispatch = [], ffn.dispatch
 
@@ -1732,14 +1776,14 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
 
     ffn.dispatch = counting
     try:
-        model.prefill({"tokens": prompts}, model.init_cache(ns.batch, max_len))
+        model.prefill(batch, model.init_cache(ns.batch, max_len))
     finally:
         ffn.dispatch = dispatch
     cache = model.init_cache(ns.batch, max_len)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    logits, cache = model.prefill({"tokens": prompts}, cache)
+    logits, cache = model.prefill(batch, cache)
     end.record()
     end.synchronize()
     prefill_ms = start.elapsed_time(end)
@@ -1756,7 +1800,7 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
         log(f"[{tag}] prefill capacity drops: {lost} of {pairs} (token, expert) pairs "
             f"({lost / pairs:.4f}) over {len(drops)} MoE layers; {g} dispatch groups of {ng} "
             f"tokens, capacity {cap} per expert and group")
-    block = model_block(torch, lm, map_tree, cfg, model, prompts, tag)
+    block = model_block(torch, lm, map_tree, cfg, model, prompts, tag, patches)
     x1 = block.pop("cpu_out")
     if cfg.moe:
         block = {"layer0": block,
@@ -1837,7 +1881,7 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
 
     # each replay's field values against a float64 product of the encoded
     # operands on the card; each logit within its quantisation bound.  At
-    # k = 5120 and k = 2048 the encoded head is all zero (ROADMAP C8), so
+    # k = 5120, 2048 and 6144 the encoded head is (nearly) all zero (ROADMAP C8), so
     # both checks compare zeros here; model_replay_check holds the kernels
     # on the replay's own (non-zero) operands
     field = gf.Field(P)
@@ -1866,7 +1910,7 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
     if worst != max(errors):
         raise AssertionError(f"[{tag}] the launcher's worst {worst} != {max(errors)}")
     del cards
-    log(f"[{tag}] prefill {prefill_ms:.3f} ms ({ns.batch} x {ns.prompt_len} tokens); trunk "
+    log(f"[{tag}] prefill {prefill_ms:.3f} ms ({ns.batch} x {ns.prompt_len} positions); trunk "
         f"per decode step {[round(t, 3) for t in trunk_ms]} ms; {steps} steps in "
         f"{decode_s:.2f} s (without the {replay_check['seconds']:.2f} s of the replay check)")
     for rec in replay_check["launches"]:
@@ -1887,7 +1931,8 @@ def phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args
         f"peak allocated {peak} bytes ({peak / 2**30:.2f} GiB) over the trunk steps and "
         f"replays 1-{len(splits) - 1}; {replay_check['peak']} bytes "
         f"({replay_check['peak'] / 2**30:.2f} GiB) through the prefill, replay 0 and its check "
-        "(replay 0's operands held)")
+        "(replay 0's operands held); the allocator freed its cache and retried "
+        f"{torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries} times in the phase")
     plan = eng._session.plan
     del model, hidden_step, engines, eng, report, cache, logits
     gc.collect()
@@ -1902,7 +1947,7 @@ def model_replay_check(torch, ref, captured: list, plan, prefix: str, tag: str) 
     """The first lm-head replay's own launches (a, b, out, variant), each
     held against the plain version on its own operands, in column slices
     of at most ``REPLAY_SLICE_ELEMS`` elements of b or out.  The encoded
-    head is zero at k = 5120 and k = 2048 (ROADMAP C8), but every share
+    head is zero at k = 5120, 2048 and 6144 (ROADMAP C8), but every share
     carries the z = 1 random noise, so these operands are not, and
     neither are the outputs of every site but the mix (H2, D2): a kernel
     that returned zeros, or wrong values, fails here where the decoded
@@ -1963,7 +2008,208 @@ def model_entries(torch, K, ref, model_run: dict, args) -> list:
 
 
 # ----------------------------------------------------------------------
-# phase 11: the sharded Phase 2
+# phase 12: the encoder-decoder through the launcher's plain decode
+# ----------------------------------------------------------------------
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# the launcher at batch 4 on 4096 frames (cfg.frontend_len) and 8 tokens:
+# max_len 4104, whose largest divisor <= 1024 is 684, so the decoder's
+# self- and cross-attention loop over 6 key chunks
+ENCDEC_ARGS = dict(batch=4, prompt_len=4096, gen_len=8)
+# the reference launcher's refusal of --private-head for a model without
+# a split lm head (src/repro/launch/serve.py)
+ENCDEC_REFUSAL = ("--private-head needs a decoder family with a split lm head; family 'encdec' "
+                  "does not expose one")
+
+
+def _launcher_argv(arch, batch, prompt_len, gen_len, *extra) -> list:
+    return ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
+            "--gen-len", str(gen_len), *extra]
+
+
+def encdec_blocks(torch, lm, map_tree, cfg, model, frames, prompts, max_len) -> dict:
+    """Encoder layer 0 on the launcher's frames (not causal), then decoder
+    block 0 on the prompt's first 8 token embeddings with its
+    cross-attention over encoder layer 0's CPU output as the cache holds
+    an encoder output (bfloat16, zero-padded to ``max_len``, keys past
+    ``enc_len`` masked): each on the card in bfloat16 and on the CPU in
+    float32 from the same bfloat16 weights and inputs, within
+    ``MODEL_BLOCK_TOL`` of the largest output."""
+    params = model.params()
+    enc0 = map_tree(lambda _, a: a[0], params["enc_layers"])
+    dec0 = map_tree(lambda _, a: a[0], params["dec_layers"])
+    to_cpu = lambda tree: map_tree(lambda _, a: a.float().cpu(), tree)  # noqa: E731
+    x = torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
+    pos = torch.arange(x.shape[1], device="cuda").expand(x.shape[:2])
+    out = {}
+
+    def check(name, what, card_fn, cpu_fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        card = card_fn()
+        end.record()
+        end.synchronize()
+        t0 = time.perf_counter()
+        cpu = cpu_fn()
+        cpu_s = time.perf_counter() - t0
+        card = card.float().cpu()
+        err = float((card - cpu).abs().max())
+        top = float(cpu.abs().max())
+        rel = float((card - cpu).norm() / cpu.norm())
+        if not bool(torch.isfinite(card).all()) or err > MODEL_BLOCK_TOL * top:
+            raise AssertionError(f"[encdec block] {what}: max |card - cpu| {err} > "
+                                 f"{MODEL_BLOCK_TOL} * {top}")
+        log(f"[encdec block] {what}: card (bfloat16) {start.elapsed_time(end):.3f} ms, CPU "
+            f"(float32) {cpu_s:.2f} s; max |card - cpu| {err:.4e} <= {MODEL_BLOCK_TOL} * max "
+            f"|cpu| {top:.4e}; relative Frobenius {rel:.3e}")
+        out[name] = {"max_abs_err": err, "max_abs": top, "rel_fro": rel}
+        return cpu
+
+    enc_cpu = check("encoder", f"encoder layer 0 on {tuple(x.shape)}, not causal",
+                    lambda: lm._enc_block_apply(cfg, enc0, x, pos),
+                    lambda: lm._enc_block_apply(cfg, to_cpu(enc0), x.float().cpu(), pos.cpu()))
+    te = enc_cpu.shape[1]
+    enc_buf = torch.nn.functional.pad(enc_cpu, (0, 0, 0, max_len - te)).to(torch.bfloat16)
+    valid = torch.arange(max_len) < te
+    tokens = torch.as_tensor(prompts[:, :8], device="cuda").long()
+    y = lm._embed_tokens(cfg, params, tokens, torch.bfloat16)
+    ypos = torch.arange(y.shape[1], device="cuda").expand(y.shape[:2])
+    check("decoder", f"decoder block 0 on {tuple(y.shape)}, cross-attention over "
+          f"{tuple(enc_buf.shape)} with enc_len {te}",
+          lambda: lm._dec_block_apply(cfg, dec0, y, ypos, enc_buf.cuda(), None, valid.cuda())[0],
+          lambda: lm._dec_block_apply(cfg, to_cpu(dec0), y.float().cpu(), ypos.cpu(),
+                                      enc_buf.float(), None, valid)[0])
+    return out
+
+
+def phase_encdec(torch, args) -> dict:
+    """SeamlessM4T-Large-v2 at full width and depth on the card through
+    ``launch.serve.main`` in process (``ENCDEC_ARGS``; weights from seed
+    0, the launcher's own): the prefill encodes 4096 frames and prefills
+    the decoder's first token, then 7 greedy decode steps, each with
+    cross-attention over the cached 4104-row encoder output.  Raises
+    unless the parameters are ``encdec_abstract``'s, every step's logits
+    are finite and of the padded vocabulary, and the launcher printed its
+    prefill and decode lines; then the block checks (``encdec_blocks``),
+    the prefill and three decode steps again, warm, timed with CUDA
+    events, and the launcher's refusal of ``--private-head``.  No TPU
+    kernel runs here.  Frees the model before it returns."""
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import lm
+    from repro_torch.models.common import count_params, map_tree
+
+    cfg = get_config(ENCDEC_ARCH)
+    ea = ENCDEC_ARGS
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    built, logits_seen = [], []
+    build, argmax = launcher.build_model, launcher.argmax_last
+
+    def keeping(c, **kw):
+        built.append(build(c, **kw))
+        return built[-1]
+
+    def checking(logits, vocab):
+        logits_seen.append((tuple(logits.shape), bool(torch.isfinite(logits).all())))
+        return argmax(logits, vocab)
+
+    launcher.build_model, launcher.argmax_last = keeping, checking
+    printed = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            launcher.main(_launcher_argv(ENCDEC_ARCH, ea["batch"], ea["prompt_len"], ea["gen_len"]))
+        wall_s = time.perf_counter() - t0
+    finally:
+        launcher.build_model, launcher.argmax_last = build, argmax
+    peak = torch.cuda.max_memory_allocated()
+    text = printed.getvalue()
+    for line in text.splitlines():
+        log(f"[encdec launcher] {line}")
+    model = built[0]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if n_params != count_params(lm.encdec_abstract(cfg)):
+        raise AssertionError(f"[encdec] {n_params} parameters")
+    want = [((ea["batch"], 1, cfg.padded_vocab), True)] * ea["gen_len"]
+    if logits_seen != want:
+        raise AssertionError(f"[encdec] logits (shape, finite) {logits_seen}, expected {want}")
+    pre = re.search(r"prefill: ([0-9.]+) ms for (\d+) x (\d+) tokens", text)
+    dec = re.search(r"decode : ([0-9.]+) ms/step \(batch (\d+)\)", text)
+    if (not pre or not dec or f"serving {ENCDEC_ARCH} on cuda" not in text
+            or (int(pre[2]), int(pre[3]), int(dec[2]))
+            != (ea["prompt_len"], ea["batch"], ea["batch"])):
+        raise AssertionError(f"[encdec] the launcher printed {text!r}")
+    log(f"[encdec] {ENCDEC_ARCH}: {cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim} "
+        f"({cfg.num_kv_heads} KV), d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}): {n_params} parameters (param_count {cfg.param_count()}), random "
+        f"from seed 0 (the launcher's), lm_head float32, the rest {cfg.compute_dtype}: "
+        f"{n_bytes} bytes ({before} allocated before); {ea['prompt_len']} frames x batch "
+        f"{ea['batch']}, {ea['gen_len'] - 1} decode steps: prefill (encode + decoder prefill) "
+        f"{pre[1]} ms, decode {dec[1]} ms/step, every step's logits finite "
+        f"{list(want[0][0])}; launcher wall {wall_s:.2f} s with the weights' draw; peak "
+        f"allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+
+    rng = np.random.default_rng(0)  # the launcher's draws: prompts, then frames
+    prompts = rng.integers(0, cfg.vocab_size, (ea["batch"], ea["prompt_len"])).astype(np.int32)
+    frames = rng.normal(size=(ea["batch"], ea["prompt_len"], cfg.d_model)).astype(np.float32)
+    max_len = ea["prompt_len"] + ea["gen_len"]
+    blocks = encdec_blocks(torch, lm, map_tree, cfg, model, frames, prompts, max_len)
+
+    # warm: the launcher's prefill and three of its decode steps again on
+    # the same model and draws, each timed with CUDA events
+    def timed(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    (logits, cache), warm_prefill_ms = timed(lambda: model.prefill(
+        {"frames": frames, "tokens": prompts[:, :1]}, model.init_cache(ea["batch"], max_len)))
+    warm_step_ms = []
+    for i in range(3):
+        tok = launcher.argmax_last(logits, cfg.vocab_size)
+        pos = np.full((ea["batch"], 1), ea["prompt_len"] + i, np.int32)
+        (logits, cache), ms = timed(lambda: model.decode_step(tok[:, None], cache, pos))
+        warm_step_ms.append(ms)
+    log(f"[encdec] warm: prefill {warm_prefill_ms:.3f} ms, decode steps "
+        f"{[round(t, 3) for t in warm_step_ms]} ms (CUDA events)")
+    del model, built, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --private-head: the reference's refusal, after the prefill
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            launcher.main(_launcher_argv(ENCDEC_ARCH, 2, 16, 2, "--reduced", "--private-head"))
+    except SystemExit as refused:
+        if str(refused) != ENCDEC_REFUSAL:
+            raise AssertionError(f"[encdec] --private-head refused with {refused!r}") from None
+    else:
+        raise AssertionError("[encdec] --private-head was not refused")
+    log(f"[encdec] --private-head refused as the reference refuses it: {ENCDEC_REFUSAL!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "bytes": n_bytes, "prefill_ms": float(pre[1]),
+            "decode_ms": float(dec[1]), "wall_s": wall_s, "peak": peak, "blocks": blocks,
+            "warm_prefill_ms": warm_prefill_ms, "warm_step_ms": warm_step_ms}
+
+
+# ----------------------------------------------------------------------
+# phase 13: the sharded Phase 2
 # ----------------------------------------------------------------------
 SHARDED_MODES = ("all_to_all", "psum", "psum_scatter")
 # gloo ranks that share the one card in the d > 1 run (NCCL refuses two
@@ -2401,6 +2647,9 @@ def main() -> int:
     model_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args)
     moe_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args,
                           tag="moe")
+    vlm_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args,
+                          tag="vlm")
+    encdec_run = phase_encdec(torch, args)
     sharded_run = phase_sharded(torch, K, ref, protocol, distributed, planner, constructions,
                                 runtime, serve, scheduler, layers, gf, args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
@@ -2409,6 +2658,7 @@ def main() -> int:
     entries += serve_entries(torch, K, ref, serve_run, args)
     entries += model_entries(torch, K, ref, model_run, args)
     entries += model_entries(torch, K, ref, moe_run, args)
+    entries += model_entries(torch, K, ref, vlm_run, args)
     entries += sharded_entries(torch, K, ref, sharded_run, entries, args)
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
@@ -2417,7 +2667,7 @@ def main() -> int:
     on_path |= {n for counts in edge_run["counts"].values() for n in counts}
     on_path |= {n for run in serve_run["runs"].values() for n in run["counts"]}
     on_path |= {n for run in crt_run.values() for n in run["launches"]}
-    on_path |= set(model_run["counts"]) | set(moe_run["counts"])
+    on_path |= set(model_run["counts"]) | set(moe_run["counts"]) | set(vlm_run["counts"])
     on_path |= {compiled for compiled, _ in sharded_run["counts"]}
     for name in on_path:
         if not any(e["kernel"] == name and e["launches"] > 0 for e in entries):
@@ -2426,8 +2676,9 @@ def main() -> int:
         f"run_batched ms {main_run['times']}, backend='cuda' {f32_run['times']}, "
         f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes; "
         f"serve peak {serve_run['peak']} bytes; fuzz {fuzz_run['cases']} cases clean; "
-        f"model peak {model_run['peak']} bytes; moe peak {moe_run['peak']} bytes; sharded peak {max(sharded_run['peaks'].values())} "
-        f"bytes")
+        f"model peak {model_run['peak']} bytes; moe peak {moe_run['peak']} bytes; vlm peak "
+        f"{vlm_run['peak']} bytes; encdec peak {encdec_run['peak']} bytes; sharded peak "
+        f"{max(sharded_run['peaks'].values())} bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

@@ -15,7 +15,9 @@ both packages' schedulers produce the same timelines, subsets and
 metrics.  ``worker_trace_from_reference`` builds the port's trace from
 the reference's fields.
 
-A model's weights and KV caches carry across by name:
+A model's weights and KV caches carry across by name, for every ported
+family (a decoder's, or an encoder-decoder's ``enc_layers``,
+``enc_norm`` and ``dec_layers`` with their cross-attention):
 ``decoder_params_from_reference`` turns the reference's parameter tree
 (numpy arrays) into a state dict for the port's ``Model``
 (``model.load_state_dict``), and ``decoder_cache_from_reference`` its
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from .core.protocol import CONST_FIELDS, INDEX_FIELDS, DevicePlan, device_plan_from_arrays
-from .models import lm
+from .models import registry
 from .models.common import iter_leaves
 from .runtime.pool import FaultSpec, WorkerTrace
 
@@ -116,13 +118,14 @@ def decoder_params_from_reference(cfg, params: dict) -> dict:
     """A state dict for the port's ``Model`` of ``cfg`` from the
     reference's parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``; an MoE model's ``moe`` and
-    ``dense_layer_{i}`` subtrees and MLA's ``attn.w_dkv`` / ``w_uk`` /
-    ``w_uv`` included): dotted names, float32 CPU
-    tensors; ``load_state_dict`` casts each into the dtype the model
-    keeps it in.  Raises ``ValueError`` on a missing, unknown or
-    misshapen weight."""
+    ``dense_layer_{i}`` subtrees, MLA's ``attn.w_dkv`` / ``w_uk`` /
+    ``w_uv``, and an encoder-decoder's ``enc_layers``, ``enc_norm`` and
+    ``dec_layers.{self_attn,cross_attn,ln_*,mlp}`` included): dotted
+    names, float32 CPU tensors; ``load_state_dict`` casts each into the
+    dtype the model keeps it in.  Raises ``ValueError`` on a missing,
+    unknown or misshapen weight."""
     got = {name: np.array(x, np.float32) for name, x in iter_leaves(params)}
-    _check_names("reference parameters", got, dict(iter_leaves(lm.decoder_abstract(cfg))))
+    _check_names("reference parameters", got, dict(iter_leaves(registry.params_abstract(cfg))))
     return {name: torch.from_numpy(x) for name, x in got.items()}
 
 
@@ -130,16 +133,17 @@ def decoder_cache_from_reference(cfg, caches: dict) -> dict:
     """The port's cache tree on the CPU from the reference's (numpy
     arrays: bfloat16 K/V or MLA ``c`` / ``k_rope`` buffers as float32 or
     as ml_dtypes bfloat16, int32 write positions; the stacked ``layers``
-    and any ``dense_{i}`` of a dense prologue), each leaf in the port's
-    cache dtype.  Batch and length come from the stacked ``k`` (``c``
-    under MLA).  Raises ``ValueError`` on a missing, unknown or
-    misshapen leaf."""
+    and any ``dense_{i}`` of a dense prologue; an encoder-decoder's
+    ``enc_out`` buffer and ``enc_len``), each leaf in the port's cache
+    dtype.  Batch and length come from the stacked ``k`` (``c`` under
+    MLA).  Raises ``ValueError`` on a missing, unknown or misshapen
+    leaf."""
     lead = "c" if cfg.mla else "k"
     layers = caches.get("layers")
     if not isinstance(layers, dict) or lead not in layers or np.ndim(layers[lead]) < 3:
         raise ValueError(f"reference caches: no stacked layers.{lead} [layers, batch, len, ...]")
     shape = np.shape(layers[lead])
-    spec = dict(iter_leaves(lm.decoder_cache_abstract(cfg, shape[1], shape[2])))
+    spec = dict(iter_leaves(registry.cache_abstract(cfg, shape[1], shape[2])))
     got = dict(iter_leaves(caches))
     _check_names("reference caches", got, spec)
     out: dict = {}

@@ -1,8 +1,9 @@
-"""Serving launcher: batched prefill + greedy decode of a decoder.
+"""Serving launcher: batched prefill + greedy decode of a language model.
 
     python -m repro_torch.launch.serve --arch mistral-nemo-12b --reduced \\
         --batch 4 --prompt-len 32 --gen-len 32 [--private-head] [--device cpu]
-    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --private-head
+    python -m repro_torch.launch.serve --arch internvl2-26b --private-head
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --prompt-len 4096 --gen-len 8
 
 The counterpart of ``repro.launch.serve``, with its flags, prompts,
 traces and printed lines.  ``--private-head`` keeps the transformer
@@ -16,11 +17,18 @@ simulated protocol time.
 The port runs on one device: ``--mesh`` takes ``elastic`` or ``1x1``,
 both meaning that device.  A ``(data, model)`` mesh of several devices
 shards the model (``distributed/sharding.py``) and waits for ROADMAP
-item 13.  The decoder families are ported: dense, and moe (DBRX's GQA
-trunk, DeepSeek-V2's MLA trunk with its dense first layer); vlm,
-encoder-decoder, ssm and hybrid wait for ROADMAP item 12.  The private
-head takes every decoder alike: DeepSeek-V2-Lite's is ``[2048, 102400]``
-float32.
+item 13.  The ported families: dense; moe (DBRX's GQA trunk,
+DeepSeek-V2's MLA trunk with its dense first layer); vlm (InternVL2's
+decoder; the launcher, as the reference's, passes no patches); and
+encdec.  An encoder-decoder's prefill encodes ``--prompt-len`` frames
+[B, prompt_len, d_model] (normals from the same ``default_rng(0)``,
+drawn after the prompts, as the reference draws them) and prefills the
+decoder with the prompts' first token; decode positions then start at
+``--prompt-len`` while the decoder's cache slot starts at 1, as there.
+ssm and hybrid wait for ROADMAP item 12.  The private head takes every
+decoder alike (DeepSeek-V2-Lite's is ``[2048, 102400]`` float32,
+InternVL2's ``[6144, 92672]``); an encoder-decoder has no split lm head,
+and ``--private-head`` refuses it after the prefill, as the reference's.
 """
 import argparse
 import time
@@ -78,8 +86,12 @@ def main(argv=None):
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     cache = model.init_cache(args.batch, max_len)
 
+    batch = {"tokens": prompts}
+    if cfg.family == "encdec":
+        frames = rng.normal(size=(args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
+        batch = {"frames": frames, "tokens": prompts[:, :1]}
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": prompts}, cache)
+    logits, cache = model.prefill(batch, cache)
     _sync(device)
     t_pre = time.perf_counter() - t0
 
@@ -119,6 +131,11 @@ def _decode_private_head(args, cfg, model, cache, tok):
     from ..runtime.pool import ShiftedExponential, sample_trace
     from ..serve import ServingEngine
 
+    if model.hidden_step is None or model.head_matrix is None:
+        raise SystemExit(
+            "--private-head needs a decoder family with a split lm head; "
+            f"family {cfg.family!r} does not expose one"
+        )
     w = model.head_matrix().cpu().numpy().astype(np.float64)  # [d_model, vocab]
     plan_cfg = PlanConfig()
     k, vocab = w.shape

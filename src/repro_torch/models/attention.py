@@ -1,15 +1,15 @@
-"""Attention blocks: GQA with optional QKV bias, and MLA (DeepSeek-V2
-latent attention with a compressed KV cache).
+"""Attention blocks: GQA with optional QKV bias (self- and
+cross-attention), and MLA (DeepSeek-V2 latent attention with a
+compressed KV cache).
 
-The counterpart of the GQA and MLA parts of ``repro.models.attention``,
-for the decoders' causal self-attention with RoPE.  A KV cache is a
-preallocated fixed-length buffer; ``gqa_attention`` and
-``mla_attention`` write the new tokens into the buffers they are given,
-in place, and return them (the reference returns new arrays;
-``lm._trunk`` copies the caches once per step, so a caller's cache is
-left as it was).  Cross-attention and the options the reference's
-encoder-decoder and vlm models set (``kv_x``, ``causal``, ``use_rope``,
-``kv_valid``) wait for those models (ROADMAP item 12).
+The counterpart of ``repro.models.attention``: causal self-attention
+with RoPE for the decoders, non-causal self-attention for the
+encoder-decoder's encoder, and cross-attention (``kv_x``, no RoPE, a
+key mask ``kv_valid``) for its decoder.  A KV cache is a preallocated
+fixed-length buffer; ``gqa_attention`` and ``mla_attention`` write the
+new tokens into the buffers they are given, in place, and return them
+(the reference returns new arrays; ``lm._trunk`` and ``lm.decode_stack``
+copy the caches once per step, so a caller's cache is left as it was).
 
 The reference's ``constrain`` calls are dropped: without sharding rules
 they do nothing, and one device has none.
@@ -30,7 +30,9 @@ _NEG = -1e30  # the reference's fill for masked scores
 # ----------------------------------------------------------------------
 # GQA
 # ----------------------------------------------------------------------
-def gqa_params(cfg: ModelConfig) -> Dict[str, ParamInfo]:
+def gqa_params(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamInfo]:
+    """A cross-attention block (``cross``) has no QKV bias, even where
+    ``cfg.qkv_bias`` gives one to self-attention."""
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     p = {
@@ -39,7 +41,7 @@ def gqa_params(cfg: ModelConfig) -> Dict[str, ParamInfo]:
         "wv": ParamInfo((d, kv * hd), ("embed", "heads")),
         "wo": ParamInfo((h * hd, d), ("heads", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = ParamInfo((h * hd,), ("heads",), init="zeros")
         p["bk"] = ParamInfo((kv * hd,), ("heads",), init="zeros")
         p["bv"] = ParamInfo((kv * hd,), ("heads",), init="zeros")
@@ -90,16 +92,18 @@ def _sdpa_chunked(
     k: torch.Tensor,  # [B, S, KV, hd]
     v: torch.Tensor,  # [B, S, KV, hd_v]
     scale: float,
-    q_positions: torch.Tensor,  # [Tq] absolute: query i sees keys <= q_positions[i]
+    q_positions: Optional[torch.Tensor] = None,  # [Tq] absolute (None = not causal)
+    kv_limit=None,  # scalar: keys >= limit invalid
+    kv_valid: Optional[torch.Tensor] = None,  # [B|1, S] bool: extra key mask
     q_chunk: int = 512,
     k_chunk: int = 1024,
 ) -> torch.Tensor:
-    """Causal online-softmax attention over [qc, kc] blocks, the
-    reference's: -1e30 for masked scores, a float32 running max, sum and
-    accumulator, ``acc / max(l, 1e-30)`` at the end.  The reference's two
-    ``scan``s are loops over the same chunks; its ``kv_limit`` and
-    ``kv_valid`` masks, which the decoders never set, wait for the models
-    that do (ROADMAP item 12)."""
+    """Online-softmax attention over [qc, kc] blocks, the reference's:
+    -1e30 for masked scores, a float32 running max, sum and accumulator,
+    ``acc / max(l, 1e-30)`` at the end.  A key is masked past its
+    query's position (``q_positions``; causal), at or past ``kv_limit``,
+    and where ``kv_valid`` is false.  The reference's two ``scan``s are
+    loops over the same chunks."""
     b, tq, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -112,7 +116,8 @@ def _sdpa_chunked(
     qg = q.reshape(b, nq, qc, kvh, g, hd)
     kg = k.reshape(b, nk, kc, kvh, hd)
     vg = v.reshape(b, nk, kc, kvh, hv)
-    qpos = q_positions.reshape(nq, qc)
+    qpos = None if q_positions is None else q_positions.reshape(nq, qc)
+    kvv = None if kv_valid is None else kv_valid.reshape(-1, nk, kc)
 
     outs = []
     for iq in range(nq):
@@ -125,7 +130,15 @@ def _sdpa_chunked(
             vb = vg[:, ik]
             sc = _dot_f32("bqkgd,bskd->bkgqs", qb, kb) * scale  # [b, kv, g, qc, kc]
             kpos = ik * kc + torch.arange(kc, device=dev)
-            sc = torch.where(kpos[None, :] <= qpos[iq][:, None], sc, _NEG)
+            mask = None
+            if qpos is not None:
+                mask = kpos[None, :] <= qpos[iq][:, None]  # [qc, kc]
+            if kv_limit is not None:
+                mask = _and(mask, kpos < kv_limit)
+            if kvv is not None:
+                mask = _and(mask, kvv[:, ik][:, None, None, None, :])
+            if mask is not None:
+                sc = torch.where(mask, sc, _NEG)
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -138,41 +151,76 @@ def _sdpa_chunked(
     return out.to(q.dtype)
 
 
+def _and(mask: Optional[torch.Tensor], more: torch.Tensor) -> torch.Tensor:
+    return more if mask is None else mask & more
+
+
+def _key_mask(kv_valid, device) -> torch.Tensor:
+    """``kv_valid`` ([Tk] or [B, Tk] bool, numpy or tensor) as [B|1, Tk]."""
+    kvv = torch.as_tensor(kv_valid, device=device)
+    return kvv[None, :] if kvv.dim() == 1 else kvv
+
+
 def gqa_attention(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # [B, T, d]
     positions: torch.Tensor,  # [B, T]
     cfg: ModelConfig,
+    kv_x: Optional[torch.Tensor] = None,  # cross-attention source [B, Tk, d]
     cache: Optional[Dict[str, torch.Tensor]] = None,
+    causal: bool = True,
+    use_rope: bool = True,
+    kv_valid=None,  # [Tk] or [B, Tk] bool
     impl: str = "chunked",
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The reference's rules: k and v come from ``kv_x`` where it is
+    given (in the dtype ``kv_x`` and the compute dtype promote to, as
+    JAX promotes them); RoPE, under ``use_rope``, turns q at
+    ``positions`` and k at ``positions``, or at ``arange(Tk)`` for a
+    ``kv_x`` without a cache.  With a cache the T new tokens are written
+    at ``cache["idx"]`` and attend causally over the valid prefix;
+    ``causal`` and ``kv_valid`` then have no effect, as there."""
     h, kv = cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
+    src = x if kv_x is None else kv_x
+    st = torch.promote_types(src.dtype, dt)
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = src.to(st) @ p["wk"].to(st)
+    v = src.to(st) @ p["wv"].to(st)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = apply_rope(_split_heads(q, h), positions, cfg.rope_theta)
-    k = apply_rope(_split_heads(k, kv), positions, cfg.rope_theta)
-    v = _split_heads(v, kv)
+    q, k, v = _split_heads(q, h), _split_heads(k, kv), _split_heads(v, kv)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(q.shape[-1])
 
     if cache is None:
+        if use_rope:
+            kpos = positions if kv_x is None else torch.arange(src.shape[1], device=x.device)[None, :]
+            k = apply_rope(k, kpos, cfg.rope_theta)
+        kvv = None if kv_valid is None else _key_mask(kv_valid, x.device)
         if impl == "naive":
             tq, tk = q.shape[1], k.shape[1]
-            ar_k = torch.arange(tk, device=x.device)
-            ar_q = torch.arange(tq, device=x.device)
-            out = _sdpa_naive(q, k, v, (ar_k[None, :] <= ar_q[:, None])[None], scale)
+            mask = None
+            if causal:
+                ar_k = torch.arange(tk, device=x.device)
+                ar_q = torch.arange(tq, device=x.device)
+                mask = (ar_k[None, :] <= ar_q[:, None])[None]
+            if kvv is not None:
+                mask = _and(mask, kvv[:, None, :])
+            out = _sdpa_naive(q, k, v, mask, scale)
         else:
-            out = _sdpa_chunked(q, k, v, scale, q_positions=positions[0])
+            out = _sdpa_chunked(q, k, v, scale, q_positions=positions[0] if causal else None,
+                                kv_valid=kvv)
         return out @ p["wo"].to(dt), None
 
     # decode/prefill-with-cache: write T tokens at cache["idx"], attend
     # causally over the valid prefix (works for T == 1 and T == seq).
     idx = cache["idx"]
+    if use_rope:
+        k = apply_rope(k, positions, cfg.rope_theta)
     tq = q.shape[1]
     slots = idx.long() + torch.arange(tq, device=x.device)
     ck = cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))

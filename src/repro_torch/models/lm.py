@@ -1,8 +1,12 @@
-"""Decoder-only language models.
+"""Decoder-only and encoder-decoder language models.
 
-The counterpart of the decoder-only half of ``repro.models.lm``, for the
-dense and moe families (GQA or MLA attention, an MLP or a token-choice
-MoE, deepseek-style dense first layers).  The trunk's parameters are
+The counterpart of ``repro.models.lm``, for the dense and moe families
+(GQA or MLA attention, an MLP or a token-choice MoE, deepseek-style
+dense first layers), vlm (a decoder whose input is a prefix of
+precomputed patch embeddings, the stub of the vision tower, then the
+token embeddings) and encdec (an encoder over precomputed frame
+embeddings, the stub of the speech frontend, and a text decoder with
+cross-attention to it).  The trunk's parameters are
 *stacked* along a leading ``layers`` axis as in the reference, so its
 weights carry across one to one; a dense prologue layer ``i`` of an MoE
 model is ``dense_layer_{i}`` beside the stack, as there.  Caches are
@@ -22,11 +26,14 @@ Deliberate differences:
   before each use.
 * ``decoder_forward`` returns two values.  The reference's third, the
   MoE auxiliary loss, only feeds ``decoder_loss``, which waits for
-  training (ROADMAP item 13); ``_trunk`` sums it all the same.
+  training (ROADMAP item 13); ``_trunk`` sums it all the same.  So do
+  the vlm label padding of ``decoder_loss`` and ``encdec_loss``.
+* ``encode`` and ``decode_stack`` loop over their stacked layers as
+  ``_trunk`` does; ``decode_stack`` copies the decoder's caches once per
+  call, so a caller's caches are left as they were.
 
 The reference's ``constrain`` calls are dropped (no-ops without sharding
-rules).  The vlm, encoder-decoder, ssm and hybrid families wait for
-their models (item 12).
+rules).  The ssm and hybrid families wait for their models (item 12).
 """
 from __future__ import annotations
 
@@ -47,14 +54,14 @@ from .attention import (
 from .common import ParamInfo, ShapeDtype, iter_leaves, map_tree, rms_norm
 from .ffn import mlp, mlp_params, moe_ffn, moe_params
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def _not_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP item 12); "
-            f"only the decoder families {PORTED_FAMILIES} are"
+            f"only the families {PORTED_FAMILIES} are"
         )
 
 
@@ -66,6 +73,12 @@ def stack_infos(tree, n: int):
     return map_tree(
         lambda _, i: ParamInfo((n,) + i.shape, ("layers",) + i.axes, i.init, i.dtype), tree
     )
+
+
+def _layers(stacked: Dict[str, Any]):
+    """The per-layer parameter trees of a stacked tree, in order."""
+    n = next(iter_leaves(stacked))[1].shape[0]
+    return [map_tree(lambda _, a: a[i], stacked) for i in range(n)]
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -143,7 +156,8 @@ def stored_infos(cfg: ModelConfig, infos: Dict[str, Any]) -> Dict[str, Any]:
     """``infos`` with the dtype each weight is kept in: ``compute_dtype``
     for every weight the reference casts to it before each use (the
     attention, MLP and MoE matrices, the router, the norm weights, an
-    untied ``embed``), float32 for ``lm_head`` and a tied ``embed``."""
+    untied ``embed``; the encoder-decoder's encoder and decoder blocks
+    and ``enc_norm``), float32 for ``lm_head`` and a tied ``embed``."""
     dt = compute_dtype(cfg)
     keep = {"lm_head"} | ({"embed"} if cfg.tie_embeddings else set())
     return map_tree(lambda name, i: i if name in keep else dataclasses.replace(i, dtype=dt), infos)
@@ -170,10 +184,7 @@ def _trunk(
         cl = None if caches is None else new_caches[f"dense_{i}"]
         x, _, aux = _block_apply(cfg, params[f"dense_layer_{i}"], x, positions, cl)
         aux_total = aux_total + aux
-    stacked = params["layers"]
-    n = next(iter_leaves(stacked))[1].shape[0]
-    for i in range(n):
-        pl = map_tree(lambda _, a: a[i], stacked)
+    for i, pl in enumerate(_layers(params["layers"])):
         cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
         x, _, aux = _block_apply(cfg, pl, x, positions, cl)
         aux_total = aux_total + aux
@@ -209,14 +220,18 @@ def decoder_forward(
 ):
     """Returns (logits | hidden, new_caches).  The reference's third
     value, the MoE auxiliary loss, feeds only ``decoder_loss`` (training,
-    ROADMAP item 13) and is not returned.  ``batch["tokens"]`` and
-    ``positions`` may be numpy arrays or tensors; they move to the
-    parameters' device."""
+    ROADMAP item 13) and is not returned.  A vlm batch's ``patches``
+    [B, P, d] go before the token embeddings, in ``compute_dtype``; the
+    default positions then span both.  ``batch["tokens"]``,
+    ``batch["patches"]`` and ``positions`` may be numpy arrays or
+    tensors; they move to the parameters' device."""
     _not_ported(cfg)
     dt = compute_dtype(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     x = _embed_tokens(cfg, params, tokens, dt)
+    if cfg.family == "vlm" and "patches" in batch:
+        x = torch.cat([torch.as_tensor(batch["patches"], device=dev).to(dt), x], dim=1)
     if positions is None:
         positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
     else:
@@ -267,3 +282,109 @@ def head_matrix(cfg: ModelConfig, params) -> torch.Tensor:
     in, so ``hidden @ head_matrix(cfg, params)`` equals the full-head
     logits — the private source-2 operand the serving engine holds."""
     return _head(cfg, params) * _scalar(cfg.logit_scale, torch.float32)
+
+
+# ----------------------------------------------------------------------
+# encoder-decoder (seamless-style backbone; the modality frontend is a stub)
+# ----------------------------------------------------------------------
+def _enc_block_infos(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln_attn": ParamInfo((d,), ("embed",), init="ones"),
+        "ln_mlp": ParamInfo((d,), ("embed",), init="ones"),
+        "attn": gqa_params(cfg),
+        "mlp": mlp_params(d, cfg.d_ff),
+    }
+
+
+def _dec_block_infos(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln_self": ParamInfo((d,), ("embed",), init="ones"),
+        "ln_cross": ParamInfo((d,), ("embed",), init="ones"),
+        "ln_mlp": ParamInfo((d,), ("embed",), init="ones"),
+        "self_attn": gqa_params(cfg),
+        "cross_attn": gqa_params(cfg, cross=True),
+        "mlp": mlp_params(d, cfg.d_ff),
+    }
+
+
+def encdec_abstract(cfg: ModelConfig) -> Dict[str, Any]:
+    d, v = cfg.d_model, cfg.padded_vocab
+    return {
+        "embed": ParamInfo((v, d), ("vocab", "embed"), init="embed"),
+        "enc_layers": stack_infos(_enc_block_infos(cfg), cfg.enc_layers),
+        "enc_norm": ParamInfo((d,), ("embed",), init="ones"),
+        "dec_layers": stack_infos(_dec_block_infos(cfg), cfg.dec_layers),
+        "final_norm": ParamInfo((d,), ("embed",), init="ones"),
+        "lm_head": ParamInfo((d, v), ("embed", "vocab")),
+    }
+
+
+def _enc_block_apply(cfg: ModelConfig, pl, x: torch.Tensor, positions: torch.Tensor):
+    h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
+    attn, _ = gqa_attention(pl["attn"], h, positions, cfg, causal=False)
+    x = x + attn
+    h = rms_norm(x, pl["ln_mlp"], cfg.norm_eps)
+    return x + mlp(pl["mlp"], h)
+
+
+def encode(cfg: ModelConfig, params, frames) -> torch.Tensor:
+    """frames: [B, Te, d] precomputed modality embeddings (the stub
+    frontend; numpy or a tensor), in ``compute_dtype``, through the
+    encoder's non-causal blocks and ``enc_norm``."""
+    dev = params["embed"].device
+    x = torch.as_tensor(frames, device=dev).to(compute_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
+    for pl in _layers(params["enc_layers"]):
+        x = _enc_block_apply(cfg, pl, x, positions)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block_apply(cfg, pl, x, positions, enc_out, cache, enc_valid=None):
+    """Causal self-attention with the cache, then cross-attention to
+    ``enc_out`` (no RoPE, keys masked by ``enc_valid``, no cache: the
+    reference projects ``enc_out`` again at every step), then the MLP."""
+    h = rms_norm(x, pl["ln_self"], cfg.norm_eps)
+    attn, new_cache = gqa_attention(pl["self_attn"], h, positions, cfg, cache=cache)
+    x = x + attn
+    h = rms_norm(x, pl["ln_cross"], cfg.norm_eps)
+    cross, _ = gqa_attention(pl["cross_attn"], h, positions, cfg, kv_x=enc_out, causal=False,
+                             use_rope=False, kv_valid=enc_valid)
+    x = x + cross
+    h = rms_norm(x, pl["ln_mlp"], cfg.norm_eps)
+    return x + mlp(pl["mlp"], h), new_cache
+
+
+def decode_stack(cfg: ModelConfig, params, tokens, enc_out, caches=None, positions=None,
+                 head_mode: str = "full", enc_len=None):
+    """The decoder over ``tokens`` [B, T] against ``enc_out`` [B, Te, d]:
+    (logits | hidden, new caches ``{"layers": ...}`` or None).  With
+    ``enc_len`` the keys of ``enc_out`` at or past it are masked (a
+    cache's padded buffer).  ``tokens``, ``positions`` and ``enc_len`` may
+    be numpy or tensors; they move to the parameters' device."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    x = _embed_tokens(cfg, params, tokens, compute_dtype(cfg))
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
+    else:
+        positions = torch.as_tensor(positions, device=dev)
+    enc_valid = None
+    if enc_len is not None:
+        enc_valid = torch.arange(enc_out.shape[1], device=dev) < torch.as_tensor(enc_len, device=dev)
+    new_caches = None
+    if caches is not None:
+        new_caches = {"layers": {k: c.clone() for k, c in caches["layers"].items()}}
+    for i, pl in enumerate(_layers(params["dec_layers"])):
+        cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
+        x, _ = _dec_block_apply(cfg, pl, x, positions, enc_out, cl, enc_valid)
+    return _logits(cfg, params, x, head_mode), new_caches
+
+
+def encdec_cache_abstract(cfg: ModelConfig, batch: int, max_len: int):
+    """The decoder's stacked self-attention caches (the reference's; the
+    registry's ``Model`` adds ``enc_out`` and ``enc_len``)."""
+    per_layer = gqa_cache_spec(cfg, batch, max_len)
+    return {"layers": {k: ShapeDtype((cfg.dec_layers,) + s.shape, s.dtype)
+                       for k, s in per_layer.items()}}

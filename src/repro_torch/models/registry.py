@@ -1,15 +1,19 @@
 """Model registry: ``build_model(cfg)`` for the serving path.
 
 The counterpart of ``repro.models.registry`` for the decoder families
-``dense`` and ``moe``.  A :class:`Model` is a ``torch.nn.Module`` whose
-parameters keep the reference's tree and names (``embed``,
-``final_norm``, ``lm_head``, ``layers.attn.wq``, ``layers.mlp.w_gate``,
-``layers.moe.router``, ``dense_layer_0.attn.w_dkv`` ...; the trunk
-stacked along a leading layers axis), so the reference's weights load
-one to one (``convert.decoder_params_from_reference`` then
-``load_state_dict``).  It serves and does not train: its parameters hold
-no gradients.  Every other family (vlm, encdec, ssm, hybrid) raises
-``NotImplementedError`` naming ROADMAP item 12.
+``dense``, ``moe`` and ``vlm`` and the encoder-decoder ``encdec``.  A
+:class:`Model` is a ``torch.nn.Module`` whose parameters keep the
+reference's tree and names (``embed``, ``final_norm``, ``lm_head``,
+``layers.attn.wq``, ``layers.mlp.w_gate``, ``layers.moe.router``,
+``dense_layer_0.attn.w_dkv``, ``enc_layers.attn.wq``,
+``dec_layers.cross_attn.wk`` ...; each stack of blocks along a leading
+layers axis), so the reference's weights load one to one
+(``convert.decoder_params_from_reference`` then ``load_state_dict``).
+It serves and does not train: its parameters hold no gradients.  An
+encoder-decoder (:class:`EncDecModel`) has no split lm head: its
+``hidden_step`` and ``head_matrix`` are None, as the reference's.  The
+ssm and hybrid families raise ``NotImplementedError`` naming ROADMAP
+item 12.
 """
 from __future__ import annotations
 
@@ -17,10 +21,57 @@ from typing import Any, Dict
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..core.protocol import resolve_device
 from . import lm
-from .common import ParamTree, map_tree, materialize
+from .common import ParamTree, ShapeDtype, map_tree, materialize
+
+
+def params_abstract(cfg: ModelConfig) -> ParamTree:
+    """The ParamInfo tree of ``cfg``'s family."""
+    lm._not_ported(cfg)
+    return lm.encdec_abstract(cfg) if cfg.family == "encdec" else lm.decoder_abstract(cfg)
+
+
+def cache_abstract(cfg: ModelConfig, batch: int, max_len: int) -> ParamTree:
+    """The ShapeDtype cache tree of ``cfg``'s family: a decoder's
+    stacked (and dense-prologue) KV or MLA buffers; an encoder-decoder's
+    stacked self-attention buffers, ``enc_out`` [B, max_len, d] bfloat16
+    (the encoder's output, zero-padded) and ``enc_len`` (its valid
+    length), as the reference's registry adds them."""
+    if cfg.family != "encdec":
+        return lm.decoder_cache_abstract(cfg, batch, max_len)
+    lm._not_ported(cfg)
+    caches = lm.encdec_cache_abstract(cfg, batch, max_len)
+    caches["enc_out"] = ShapeDtype((batch, max_len, cfg.d_model), torch.bfloat16)
+    caches["enc_len"] = ShapeDtype((), torch.int32)
+    return caches
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
+    """Abstract inputs for one workload cell (no allocation), the
+    reference's: int32 tokens (and train labels), bfloat16 frames of
+    an encoder-decoder (decoder tokens ``max(T // 8, 16)``, 1 at
+    decode) and a vlm's bfloat16 patch prefix of ``min(frontend_len,
+    T // 4)`` (the tokens fill the rest; none at decode)."""
+    b, t = shape.global_batch, shape.seq_len
+    tok = lambda n: ShapeDtype((b, n), torch.int32)  # noqa: E731
+    emb = lambda n: ShapeDtype((b, n, cfg.d_model), torch.bfloat16)  # noqa: E731
+    if cfg.family == "encdec":
+        dec_t = 1 if shape.kind == "decode" else max(t // 8, 16)
+        spec = {"frames": emb(t), "tokens": tok(dec_t)}
+    elif shape.kind == "decode":
+        return {"tokens": tok(1)}
+    elif cfg.family == "vlm":
+        pt = min(cfg.frontend_len, t // 4)
+        dec_t = t - pt
+        spec = {"patches": emb(pt), "tokens": tok(dec_t)}
+    else:
+        dec_t = t
+        spec = {"tokens": tok(t)}
+    if shape.kind == "train":
+        spec["labels"] = tok(dec_t)
+    return spec
 
 
 def _register(module: torch.nn.Module, tree: ParamTree) -> None:
@@ -44,7 +95,8 @@ class Model(torch.nn.Module):
     reference ``Model``'s serving callables with the parameters bound:
     ``prefill(batch, caches)``, ``decode_step(tokens, caches,
     positions)``, ``hidden_step(tokens, caches, positions)``,
-    ``head_matrix()`` and ``init_cache(batch, max_len)``."""
+    ``head_matrix()``, ``init_cache(batch, max_len)`` and
+    ``batch_spec(shape)``."""
 
     def __init__(self, cfg: ModelConfig, params: ParamTree):
         super().__init__()
@@ -56,7 +108,7 @@ class Model(torch.nn.Module):
         return self.embed.device
 
     def abstract_params(self) -> ParamTree:
-        return lm.decoder_abstract(self.cfg)
+        return params_abstract(self.cfg)
 
     def params(self) -> ParamTree:
         """The parameters as the reference's nested dict."""
@@ -84,24 +136,66 @@ class Model(torch.nn.Module):
         return lm.head_matrix(self.cfg, self.params())
 
     def cache_abstract(self, batch: int, max_len: int):
-        return lm.decoder_cache_abstract(self.cfg, batch, max_len)
+        return cache_abstract(self.cfg, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int):
-        """Concrete initial caches on the model's device, all zero: the
-        stacked GQA or MLA buffers and those of the dense prologue layers
-        (the reference's -1e30 fill of ssm stabiliser leaves comes with
-        the ssm families)."""
+        """Concrete initial caches on the model's device, all zero (the
+        reference's -1e30 fill of ssm stabiliser leaves comes with the
+        ssm families)."""
         return map_tree(lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
                         self.cache_abstract(batch, max_len))
 
+    def batch_spec(self, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
+        return batch_spec(self.cfg, shape)
+
+
+class EncDecModel(Model):
+    """An encoder-decoder: ``prefill`` encodes ``batch["frames"]`` and
+    prefills the decoder with ``batch["tokens"]`` against it, keeping the
+    encoder's output in the caches (``enc_out``, ``enc_len``) for
+    ``decode_step``; ``forward`` is ``decode_stack(tokens,
+    encode(frames))``.  It has no split lm head (``hidden_step`` and
+    ``head_matrix`` are None), so the private head refuses it."""
+
+    hidden_step = None
+    head_matrix = None
+
+    @torch.no_grad()
+    def forward(self, batch):
+        p = self.params()
+        return lm.decode_stack(self.cfg, p, batch["tokens"], lm.encode(self.cfg, p, batch["frames"]))[0]
+
+    @torch.no_grad()
+    def prefill(self, batch, caches):
+        """The reference's: the decoder is prefilled against the
+        unpadded ``enc_out`` with no ``enc_len``; the caches keep it
+        zero-padded to their length, in their dtype, and its length."""
+        p = self.params()
+        enc_out = lm.encode(self.cfg, p, batch["frames"])
+        buf = caches["enc_out"]
+        pad = buf.shape[1] - enc_out.shape[1]
+        enc_buf = torch.nn.functional.pad(enc_out, (0, 0, 0, pad)).to(buf.dtype)
+        logits, new = lm.decode_stack(self.cfg, p, batch["tokens"], enc_out,
+                                      {"layers": caches["layers"]}, head_mode="last")
+        enc_len = torch.tensor(enc_out.shape[1], dtype=torch.int32, device=buf.device)
+        return logits, {**caches, "enc_out": enc_buf, "enc_len": enc_len, "layers": new["layers"]}
+
+    @torch.no_grad()
+    def decode_step(self, tokens, caches, positions):
+        logits, new = lm.decode_stack(self.cfg, self.params(), tokens, caches["enc_out"],
+                                      {"layers": caches["layers"]}, positions,
+                                      enc_len=caches.get("enc_len"))
+        return logits, {**caches, "layers": new["layers"]}
+
 
 def build_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
-    """A decoder with weights drawn by ``materialize`` from a
+    """A model of ``cfg`` (an :class:`EncDecModel` for the encdec
+    family) with weights drawn by ``materialize`` from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (default:
     the GPU), each weight in the dtype ``lm.stored_infos`` gives it."""
-    lm._not_ported(cfg)
+    infos = params_abstract(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = materialize(lm.stored_infos(cfg, lm.decoder_abstract(cfg)), gen, device)
-    return Model(cfg, params)
+    params = materialize(lm.stored_infos(cfg, infos), gen, device)
+    return (EncDecModel if cfg.family == "encdec" else Model)(cfg, params)

@@ -2,7 +2,8 @@
 the batched engine, the edge runtime, the serving engine and the CRT
 route through the kernels against the same entry points on the CPU; the
 fuzz harness on the kernel engines, and ``autotune_tiles``; the reduced
-dense decoder, the reduced DeepSeek-V2-Lite (MLA and MoE) and the
+dense decoder, the reduced DeepSeek-V2-Lite (MLA and MoE), the reduced
+InternVL2 (with patches) and SeamlessM4T (encoder-decoder) and the
 launcher's private head on the card against the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
@@ -476,6 +477,88 @@ def test_reduced_deepseek_on_the_card_equals_the_cpu_run(cuda):
         else:
             assert cg[k].dtype == torch.float32, k
             assert torch.allclose(cg[k], cc[k], rtol=1e-4, atol=2e-4), k
+
+
+def _float32_caches(cache):
+    """A cache tree with its floating leaves in float32 (as the DeepSeek
+    test above holds them: no bfloat16 rounding flips between sides)."""
+    return {k: _float32_caches(v) if isinstance(v, dict) else
+            (v.float() if v.is_floating_point() else v) for k, v in cache.items()}
+
+
+def _flat(cache, prefix=""):
+    out = {}
+    for k, v in cache.items():
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {prefix + k: v.cpu()})
+    return out
+
+
+def _decode_on_both(cfg, cpu, card, batch, max_len, pos0):
+    """Prefill ``batch``, then three greedy decode steps on the CPU and on
+    the card (both feeding the CPU's tokens) with float32 caches; the
+    logits and caches of both within the float32 tolerance of the CPU
+    tests, and the same greedy tokens."""
+    out = {}
+    b = len(batch["tokens"])
+    for name, model in (("cpu", cpu), ("card", card)):
+        logits, cache = model.prefill(batch, _float32_caches(model.init_cache(b, max_len)))
+        steps = [logits.cpu()]
+        for i in range(3):
+            lead = steps if name == "cpu" else out["cpu"][0]
+            tok = launcher.argmax_last(lead[i], cfg.vocab_size)
+            logits, cache = model.decode_step(tok[:, None], cache, np.full((b, 1), pos0 + i, np.int32))
+            steps.append(logits.cpu())
+        out[name] = (steps, _flat(cache))
+    (lc, cc), (lg, cg) = out["cpu"], out["card"]
+    assert sorted(cc) == sorted(cg)
+    for a, g in zip(lc, lg):
+        assert torch.isfinite(g).all()
+        assert torch.allclose(g, a, rtol=1e-4, atol=2e-4), (g - a).abs().max().item()
+        np.testing.assert_array_equal(launcher.argmax_last(g, cfg.vocab_size),
+                                      launcher.argmax_last(a, cfg.vocab_size))
+    for k in cc:
+        if cc[k].is_floating_point():
+            assert cg[k].dtype == torch.float32, k
+            assert torch.allclose(cg[k], cc[k], rtol=1e-4, atol=2e-4), k
+        else:
+            assert torch.equal(cc[k], cg[k]), k
+    return cc
+
+
+def test_reduced_internvl2_with_patches_on_the_card_equals_the_cpu_run(cuda):
+    """Reduced InternVL2 at float32 with TF32 off: a prefill of 8 patch
+    embeddings and 8 tokens, then three decode steps from position 16."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card = _model_pair(cuda, "float32", "internvl2-26b")
+    rng = np.random.default_rng(4)
+    batch = {"patches": rng.normal(size=(2, cfg.frontend_len, cfg.d_model)).astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)}
+    caches = _decode_on_both(cfg, cpu, card, batch, cfg.frontend_len + 12, cfg.frontend_len + 8)
+    assert int(caches["layers.idx"][0]) == cfg.frontend_len + 11
+
+
+def test_reduced_seamless_on_the_card_equals_the_cpu_run(cuda):
+    """Reduced SeamlessM4T at float32 with TF32 off: 12 frames encoded and
+    two decoder tokens prefilled, the cached ``enc_out`` (float32 here)
+    padded to 16 with ``enc_len`` 12, then three decode steps."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card = _model_pair(cuda, "float32", "seamless-m4t-large-v2")
+    rng = np.random.default_rng(5)
+    batch = {"frames": rng.normal(size=(2, 12, cfg.d_model)).astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab_size, (2, 2)).astype(np.int32)}
+    caches = _decode_on_both(cfg, cpu, card, batch, 16, 12)
+    assert int(caches["enc_len"]) == 12 and not caches["enc_out"][:, 12:].any()
+    assert card.hidden_step is None and card.head_matrix is None
+
+
+def test_launcher_encdec_runs_on_the_card(cuda, capsys):
+    launcher.main(["--arch", "seamless-m4t-large-v2", "--reduced", "--batch", "2",
+                   "--prompt-len", "8", "--gen-len", "4"])
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "ms/step (batch 2)" in out
+    with pytest.raises(SystemExit, match="does not expose one"):
+        launcher.main(["--arch", "seamless-m4t-large-v2", "--reduced", "--private-head",
+                       "--batch", "2", "--prompt-len", "8", "--gen-len", "4"])
 
 
 def test_launcher_private_head_runs_on_the_card(cuda):
