@@ -127,7 +127,30 @@ Phases (each raises on failure; the exit code is then not 0):
              encoder output with ``enc_len``) card (bfloat16) against CPU
              (float32); ``--private-head`` refused with the reference's
              message.  No TPU kernel runs in this phase;
-13. sharded — the sharded Phase 2 (``repro_torch.core.distributed``) at
+13. xlstm  — with SeamlessM4T freed, xLSTM-1.3B at full width and depth
+             (48 layers as 6 x [1 sLSTM + 7 mLSTM], d_model 2048, d_in
+             4096, 4 heads, vocab 50304 padded to 50432; 4,335,536,464
+             parameters, 10,491,204,928 bytes: lm_head and the float32-cast
+             gate weights in float32) through ``launch.serve.main`` in
+             process (batch 4, prompt 256 = 4 mLSTM chunks of 64, gen 8,
+             the plain decode): the parameters and bytes, every step's
+             logits finite, the launcher's prefill and decode ms, the peak
+             device memory; sLSTM block 0 and mLSTM block (0, 0) over 128
+             tokens card (bfloat16) against CPU (float32), outputs and final
+             states, zero-initialised leaves drawn first; a warm prefill and
+             3 decode steps by CUDA events beside the step's bound; the last
+             logits of a prefill over 257 tokens against a prefill over 256
+             and one step (bfloat16 recorded, float32 held within 2**-5);
+             ``--private-head`` refused with the reference's message; no
+             TPU kernel launched;
+14. zamba  — the same for Zamba2-2.7B (54 Mamba2 layers, d_model 2560,
+             state 64, chunk 128, the shared attention + MLP block (32 x 80
+             heads, d_ff 10240) before every 6th layer with a rank-64 LoRA
+             row each, vocab 32000; 2,425,619,360 parameters, 5,015,096,000
+             bytes): the blocks are Mamba2 layer 1 over 256 tokens (2
+             chunks) and the shared block at invocation 1 with a nonzero
+             LoRA ``b_q``;
+15. sharded — the sharded Phase 2 (``repro_torch.core.distributed``) at
              the main path's width: a one-rank NCCL group from a
              ``HashStore`` and its ``workers`` mesh on the card;
              ``run_batched_sharded`` in all_to_all, psum and psum_scatter
@@ -146,7 +169,7 @@ Phases (each raises on failure; the exit code is then not 0):
              (every y exact); then 4 gloo ranks sharing the card (n_total
              17 padded to 20): every rank's Y exact in every mode and its
              I equal to the dense Phase 2's;
-14. timing — each kernel at each launch site of its paths (the
+16. timing — each kernel at each launch site of its paths (the
              ``run_batched`` sites, the edge runtime's, a serving
              replay's at n_total 21 and one request, the lm-head
              replays', H, D and V, at n_total 16, and any shape the
@@ -2082,35 +2105,17 @@ def encdec_blocks(torch, lm, map_tree, cfg, model, frames, prompts, max_len) -> 
     return out
 
 
-def phase_encdec(torch, args) -> dict:
-    """SeamlessM4T-Large-v2 at full width and depth on the card through
-    ``launch.serve.main`` in process (``ENCDEC_ARGS``; weights from seed
-    0, the launcher's own): the prefill encodes 4096 frames and prefills
-    the decoder's first token, then 7 greedy decode steps, each with
-    cross-attention over the cached 4104-row encoder output.  Raises
-    unless the parameters are ``encdec_abstract``'s, every step's logits
-    are finite and of the padded vocabulary, and the launcher printed its
-    prefill and decode lines; then the block checks (``encdec_blocks``),
-    the prefill and three decode steps again, warm, timed with CUDA
-    events, and the launcher's refusal of ``--private-head``.  No TPU
-    kernel runs here.  Frees the model before it returns."""
+def launch_in_process(torch, launcher, argv, tag):
+    """``launcher.main(argv)`` in process on the card, its printed lines
+    logged as ``[{tag} launcher]``: (the model it built, its printed
+    text, (shape, finite) of the logits of every step, wall seconds with
+    the weights' draw, peak allocated bytes since the call)."""
     import contextlib
-    import gc
     import io
 
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve as launcher
-    from repro_torch.models import lm
-    from repro_torch.models.common import count_params, map_tree
-
-    cfg = get_config(ENCDEC_ARCH)
-    ea = ENCDEC_ARGS
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
     built, logits_seen = [], []
     build, argmax = launcher.build_model, launcher.argmax_last
 
@@ -2127,15 +2132,84 @@ def phase_encdec(torch, args) -> dict:
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
-            launcher.main(_launcher_argv(ENCDEC_ARCH, ea["batch"], ea["prompt_len"], ea["gen_len"]))
+            launcher.main(argv)
         wall_s = time.perf_counter() - t0
     finally:
         launcher.build_model, launcher.argmax_last = build, argmax
     peak = torch.cuda.max_memory_allocated()
     text = printed.getvalue()
     for line in text.splitlines():
-        log(f"[encdec launcher] {line}")
-    model = built[0]
+        log(f"[{tag} launcher] {line}")
+    return built[0], text, logits_seen, wall_s, peak
+
+
+def launcher_lines(text, arch, batch, prompt_len, tag):
+    """The launcher's prefill and decode ms from its printed lines;
+    raises unless it served ``arch`` on the card at this batch and
+    prompt length."""
+    pre = re.search(r"prefill: ([0-9.]+) ms for (\d+) x (\d+) tokens", text)
+    dec = re.search(r"decode : ([0-9.]+) ms/step \(batch (\d+)\)", text)
+    if (not pre or not dec or f"serving {arch} on cuda" not in text
+            or (int(pre[2]), int(pre[3]), int(dec[2])) != (prompt_len, batch, batch)):
+        raise AssertionError(f"[{tag}] the launcher printed {text!r}")
+    return float(pre[1]), float(dec[1])
+
+
+def cuda_timed(torch, fn):
+    """(fn(), its CUDA-event ms)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def refused_private_head(launcher, arch, want, tag) -> None:
+    """The launcher refuses ``--private-head`` on the reduced ``arch``
+    (on the card, after its prefill) with the message ``want``."""
+    import contextlib
+    import io
+
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            launcher.main(_launcher_argv(arch, 2, 16, 2, "--reduced", "--private-head"))
+    except SystemExit as refused:
+        if str(refused) != want:
+            raise AssertionError(f"[{tag}] --private-head refused with {refused!r}") from None
+    else:
+        raise AssertionError(f"[{tag}] --private-head was not refused")
+    log(f"[{tag}] --private-head refused as the reference refuses it: {want!r}")
+
+
+def phase_encdec(torch, args) -> dict:
+    """SeamlessM4T-Large-v2 at full width and depth on the card through
+    ``launch.serve.main`` in process (``ENCDEC_ARGS``; weights from seed
+    0, the launcher's own): the prefill encodes 4096 frames and prefills
+    the decoder's first token, then 7 greedy decode steps, each with
+    cross-attention over the cached 4104-row encoder output.  Raises
+    unless the parameters are ``encdec_abstract``'s, every step's logits
+    are finite and of the padded vocabulary, and the launcher printed its
+    prefill and decode lines; then the block checks (``encdec_blocks``),
+    the prefill and three decode steps again, warm, timed with CUDA
+    events, and the launcher's refusal of ``--private-head``.  No TPU
+    kernel runs here.  Frees the model before it returns."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import lm
+    from repro_torch.models.common import count_params, map_tree
+
+    cfg = get_config(ENCDEC_ARCH)
+    ea = ENCDEC_ARGS
+    before = torch.cuda.memory_allocated()
+    model, text, logits_seen, wall_s, peak = launch_in_process(
+        torch, launcher, _launcher_argv(ENCDEC_ARCH, ea["batch"], ea["prompt_len"], ea["gen_len"]),
+        "encdec")
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     if n_params != count_params(lm.encdec_abstract(cfg)):
@@ -2143,12 +2217,7 @@ def phase_encdec(torch, args) -> dict:
     want = [((ea["batch"], 1, cfg.padded_vocab), True)] * ea["gen_len"]
     if logits_seen != want:
         raise AssertionError(f"[encdec] logits (shape, finite) {logits_seen}, expected {want}")
-    pre = re.search(r"prefill: ([0-9.]+) ms for (\d+) x (\d+) tokens", text)
-    dec = re.search(r"decode : ([0-9.]+) ms/step \(batch (\d+)\)", text)
-    if (not pre or not dec or f"serving {ENCDEC_ARCH} on cuda" not in text
-            or (int(pre[2]), int(pre[3]), int(dec[2]))
-            != (ea["prompt_len"], ea["batch"], ea["batch"])):
-        raise AssertionError(f"[encdec] the launcher printed {text!r}")
+    pre_ms, dec_ms = launcher_lines(text, ENCDEC_ARCH, ea["batch"], ea["prompt_len"], "encdec")
     log(f"[encdec] {ENCDEC_ARCH}: {cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim} "
         f"({cfg.num_kv_heads} KV), d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
@@ -2156,7 +2225,7 @@ def phase_encdec(torch, args) -> dict:
         f"from seed 0 (the launcher's), lm_head float32, the rest {cfg.compute_dtype}: "
         f"{n_bytes} bytes ({before} allocated before); {ea['prompt_len']} frames x batch "
         f"{ea['batch']}, {ea['gen_len'] - 1} decode steps: prefill (encode + decoder prefill) "
-        f"{pre[1]} ms, decode {dec[1]} ms/step, every step's logits finite "
+        f"{pre_ms} ms, decode {dec_ms} ms/step, every step's logits finite "
         f"{list(want[0][0])}; launcher wall {wall_s:.2f} s with the weights' draw; peak "
         f"allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
 
@@ -2168,48 +2237,308 @@ def phase_encdec(torch, args) -> dict:
 
     # warm: the launcher's prefill and three of its decode steps again on
     # the same model and draws, each timed with CUDA events
-    def timed(fn):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
-        e1.record()
-        e1.synchronize()
-        return out, e0.elapsed_time(e1)
-
-    (logits, cache), warm_prefill_ms = timed(lambda: model.prefill(
+    (logits, cache), warm_prefill_ms = cuda_timed(torch, lambda: model.prefill(
         {"frames": frames, "tokens": prompts[:, :1]}, model.init_cache(ea["batch"], max_len)))
     warm_step_ms = []
     for i in range(3):
         tok = launcher.argmax_last(logits, cfg.vocab_size)
         pos = np.full((ea["batch"], 1), ea["prompt_len"] + i, np.int32)
-        (logits, cache), ms = timed(lambda: model.decode_step(tok[:, None], cache, pos))
+        (logits, cache), ms = cuda_timed(torch, lambda: model.decode_step(tok[:, None], cache, pos))
         warm_step_ms.append(ms)
     log(f"[encdec] warm: prefill {warm_prefill_ms:.3f} ms, decode steps "
         f"{[round(t, 3) for t in warm_step_ms]} ms (CUDA events)")
-    del model, built, logits, cache
+    del model, logits, cache
     gc.collect()
     torch.cuda.empty_cache()
 
     # --private-head: the reference's refusal, after the prefill
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            launcher.main(_launcher_argv(ENCDEC_ARCH, 2, 16, 2, "--reduced", "--private-head"))
-    except SystemExit as refused:
-        if str(refused) != ENCDEC_REFUSAL:
-            raise AssertionError(f"[encdec] --private-head refused with {refused!r}") from None
-    else:
-        raise AssertionError("[encdec] --private-head was not refused")
-    log(f"[encdec] --private-head refused as the reference refuses it: {ENCDEC_REFUSAL!r}")
+    refused_private_head(launcher, ENCDEC_ARCH, ENCDEC_REFUSAL, "encdec")
     gc.collect()
     torch.cuda.empty_cache()
-    return {"params": n_params, "bytes": n_bytes, "prefill_ms": float(pre[1]),
-            "decode_ms": float(dec[1]), "wall_s": wall_s, "peak": peak, "blocks": blocks,
+    return {"params": n_params, "bytes": n_bytes, "prefill_ms": pre_ms,
+            "decode_ms": dec_ms, "wall_s": wall_s, "peak": peak, "blocks": blocks,
             "warm_prefill_ms": warm_prefill_ms, "warm_step_ms": warm_step_ms}
 
 
 # ----------------------------------------------------------------------
-# phase 13: the sharded Phase 2
+# phases 13 and 14: the recurrent families
+# ----------------------------------------------------------------------
+# tag: (arch, parameters, stored bytes, block-check length).  The sums of
+# xlstm_abstract's and zamba_abstract's leaves at full width (xLSTM's
+# config gives mLSTM full d_in x d_in q/k/v projections, d_in 4096, so
+# 4.34 B where the name says 1.3); the bytes under lm.stored_infos:
+# lm_head and the float32-cast leaves (sLSTM w_gates / r_gates, ...) in
+# float32, the rest in bfloat16.  The block checks run over at least two
+# chunks: 128 tokens are 2 mLSTM chunks of 64, 256 are 2 Mamba2 chunks
+# of 128
+RECURRENT_PHASES = {"xlstm": ("xlstm-1.3b", 4_335_536_464, 10_491_204_928, 128),
+                    "zamba": ("zamba2-2.7b", 2_425_619_360, 5_015_096_000, 256)}
+# the launcher at batch 4: 256 prompt tokens span 4 mLSTM chunks of 64
+# and 2 Mamba2 chunks of 128, so the carried chunk state is used
+RECURRENT_ARGS = dict(batch=4, prompt_len=256, gen_len=8)
+# the normals (times this scale, from this seed) that replace every
+# zero-initialised leaf of a checked block: b_if, b_gates, conv_b,
+# a_log, dt_bias, the LoRA b_q
+BLOCK_ZERO_SCALE = 0.5
+BLOCK_SEED = 1234
+
+
+def _refusal(family: str) -> str:
+    """The reference launcher's refusal of --private-head for a model
+    without a split lm head (src/repro/launch/serve.py)."""
+    return ("--private-head needs a decoder family with a split lm head; "
+            f"family {family!r} does not expose one")
+
+
+def seeded_zero_leaves(torch, block: dict, infos: dict, gen, map_tree, iter_leaves) -> dict:
+    """``block`` with every leaf that ``infos`` (the same names) marks
+    ``init="zeros"`` replaced by seeded normals times
+    ``BLOCK_ZERO_SCALE``, in its dtype and on its device: with zeros a
+    fault in the term such a leaf feeds could not show."""
+    kinds = {name: info.init for name, info in iter_leaves(infos)}
+
+    def leaf(name, a):
+        if kinds[name] != "zeros":
+            return a
+        draw = torch.randn(a.shape, generator=gen, device=a.device, dtype=torch.float32)
+        return (draw * BLOCK_ZERO_SCALE).to(a.dtype)
+
+    return map_tree(leaf, block)
+
+
+def recurrent_blocks(torch, cfg, model, prompts, tag, t: int) -> dict:
+    """Blocks of the model on the embeddings of the prompts' first ``t``
+    tokens, each on the card in bfloat16 and on the CPU in float32 from
+    the same weights (bfloat16-stored ones upcast), every zero-initialised
+    leaf overwritten with seeded normals first: the output and every
+    state it returns within ``MODEL_BLOCK_TOL`` of that value's largest
+    |cpu|.  xLSTM: sLSTM block 0 and mLSTM block (0, 0), with their final
+    states.  Zamba2: Mamba2 layer 1 with its final ``state`` and ``conv``,
+    and the shared block at invocation 1 with a nonzero LoRA ``b_q``
+    (which must move the output by more than the tolerance)."""
+    from repro_torch.models import hybrid, lm, registry, ssm, xlstm
+    from repro_torch.models.common import iter_leaves, map_tree
+
+    params = model.params()
+    infos = registry.params_abstract(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(BLOCK_SEED)
+    x = lm._embed_tokens(cfg, params, torch.as_tensor(prompts[:, :t], device="cuda").long(),
+                         torch.bfloat16)
+    xc = x.float().cpu()
+    pos = torch.arange(t, device="cuda").expand(x.shape[:2])
+    to_cpu = lambda tree: map_tree(lambda _, a: a.float().cpu(), tree)  # noqa: E731
+    out = {}
+
+    def check(name, what, block, card_fn, cpu_fn):
+        (card, card_state), card_ms = cuda_timed(torch, lambda: card_fn(block, x))
+        t0 = time.perf_counter()
+        cpu, cpu_state = cpu_fn(to_cpu(block), xc)
+        cpu_s = time.perf_counter() - t0
+        pairs = {"out": (card, cpu), **{k: (card_state[k], v) for k, v in (cpu_state or {}).items()}}
+        errs = {}
+        for key, (c, r) in pairs.items():
+            c = c.float().cpu()
+            err, top = float((c - r).abs().max()), float(r.abs().max())
+            if not bool(torch.isfinite(c).all()) or err > MODEL_BLOCK_TOL * top:
+                raise AssertionError(f"[{tag} block] {what} {key}: max |card - cpu| {err} > "
+                                     f"{MODEL_BLOCK_TOL} * {top}")
+            errs[key] = {"max_abs_err": err, "max_abs": top}
+        rel = float((card.float().cpu() - cpu).norm() / cpu.norm())
+        ratios = {k: round(e["max_abs_err"] / e["max_abs"], 6) for k, e in errs.items()}
+        log(f"[{tag} block] {what} on {tuple(x.shape)}: card (bfloat16) {card_ms:.3f} ms, CPU "
+            f"(float32) {cpu_s:.2f} s; max |card - cpu| / max |cpu| of each value {ratios} <= "
+            f"{MODEL_BLOCK_TOL}; output relative Frobenius {rel:.3e}")
+        out[name] = {**errs, "rel_fro": rel}
+        return card
+
+    def scan_block(core_scan):
+        def run(block, h):
+            return hybrid._block(cfg, None, core_scan, block, h, None, False, True)
+        return run
+
+    if cfg.family == "ssm":
+        ps = seeded_zero_leaves(torch, map_tree(lambda _, a: a[0], params["slstm"]),
+                                infos["slstm"], gen, map_tree, iter_leaves)
+        check("slstm", "sLSTM block 0", ps, scan_block(xlstm.slstm_scan), scan_block(xlstm.slstm_scan))
+        pm = seeded_zero_leaves(torch, map_tree(lambda _, a: a[0, 0], params["mlstm"]),
+                                infos["mlstm"], gen, map_tree, iter_leaves)
+        check("mlstm", f"mLSTM block (0, 0), {t // xlstm._chunk_len(cfg, t)} chunks", pm,
+              scan_block(xlstm.mlstm_scan), scan_block(xlstm.mlstm_scan))
+        return out
+    pm = seeded_zero_leaves(torch, map_tree(lambda _, a: a[1], params["mamba"]),
+                            infos["mamba"], gen, map_tree, iter_leaves)
+    check("mamba", f"Mamba2 layer 1, {t // ssm._chunk_len(cfg.ssm, t)} chunks", pm,
+          scan_block(ssm.mamba_scan), scan_block(ssm.mamba_scan))
+    shared = {"shared": params["shared"],
+              "lora": seeded_zero_leaves(torch, params["lora"], infos["lora"], gen, map_tree,
+                                         iter_leaves)}
+
+    def shared_card(block, h):
+        return hybrid._shared_block(cfg, block["shared"], block["lora"], 1, h, pos, None)[0], None
+
+    def shared_cpu(block, h):
+        return hybrid._shared_block(cfg, block["shared"], block["lora"], 1, h, pos.cpu(), None)[0], None
+
+    card = check("shared", "the shared block at invocation 1 with a nonzero LoRA b_q", shared,
+                 shared_card, shared_cpu)
+    bare = hybrid._shared_block(cfg, params["shared"], params["lora"], 1, x, pos, None)[0]
+    moved = float((bare - card).abs().max())
+    bound = MODEL_BLOCK_TOL * out["shared"]["out"]["max_abs"]
+    if not moved > 2 * bound:
+        raise AssertionError(f"[{tag} block] the LoRA term moved the output by {moved} only")
+    log(f"[{tag} block] the LoRA term moves the shared block's output by {moved:.4e}, "
+        f"> 2 * {bound:.4e}")
+    out["shared"]["lora_moved"] = moved
+    return out
+
+
+def carried_diff(torch, model, prompts, whole, first, max_len, tag) -> dict:
+    """The last logits of ``model``'s prefill over ``whole`` (the prompts
+    and their first greedy token ``first``) against its prefill over the
+    prompts and one decode step of ``first``: max |diff|, max |logit|,
+    whether the greedy tokens agree, the prefill's CUDA-event ms."""
+    import numpy as np
+
+    b, t = prompts.shape
+    logits, cache = model.prefill({"tokens": prompts}, model.init_cache(b, max_len))
+    stepped, _ = model.decode_step(first[:, None], cache, np.full((b, 1), t, np.int32))
+    del logits, cache
+    (longer, _), ms = cuda_timed(
+        torch, lambda: model.prefill({"tokens": whole}, model.init_cache(b, max_len)))
+    stepped, longer = stepped.float(), longer.float()
+    if not bool(torch.isfinite(longer).all() and torch.isfinite(stepped).all()):
+        raise AssertionError(f"[{tag} carried] logits not finite")
+    err, top = float((stepped - longer).abs().max()), float(longer.abs().max())
+    same = bool((stepped[:, -1].argmax(-1) == longer[:, -1].argmax(-1)).all())
+    dtype = model.cfg.compute_dtype
+    log(f"[{tag} carried] {dtype}: the last logits of a prefill over {t + 1} tokens ({ms:.3f} "
+        f"ms) against a prefill over {t} and one decode step: max |diff| {err:.4e}, max |logit| "
+        f"{top:.4e} (ratio {err / top:.3e}, tolerance {MODEL_BLOCK_TOL} at float32); the same "
+        f"greedy tokens: {same}")
+    return {"max_abs_err": err, "max_abs": top, "same_tokens": same, "prefill_ms": ms}
+
+
+def phase_recurrent(torch, K, tag: str) -> dict:
+    """xLSTM-1.3B (``tag="xlstm"``) or Zamba2-2.7B (``"zamba"``) at full
+    width and depth on the card through ``launch.serve.main`` in process
+    (``RECURRENT_ARGS``, the plain greedy decode; weights from seed 0,
+    the launcher's own).  Raises unless the parameters and stored bytes
+    are ``RECURRENT_PHASES``'s, every step's logits are finite and of the
+    padded vocabulary, and the launcher printed its prefill and decode
+    lines; then the block checks (``recurrent_blocks``), the prefill and
+    three decode steps again, warm, by CUDA events (each step beside its
+    bound: the weights and the cache read and written once at the card's
+    memory rate), the state carried on the card (``carried_diff``: in
+    bfloat16 recorded; on the same weights at float32 compute the last
+    logits of a prefill over the prompt and its first greedy token within
+    ``MODEL_BLOCK_TOL`` of their largest of those of the prefill over the
+    prompt and one decode step), and the launcher's refusal of
+    ``--private-head``.  No TPU kernel runs here: the launch counters are
+    the same after the phase as before.  Frees the model before it
+    returns."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import registry
+    from repro_torch.models.common import count_params, iter_leaves, map_tree
+
+    arch, want_params, want_bytes, block_t = RECURRENT_PHASES[tag]
+    cfg = get_config(arch)
+    ra = RECURRENT_ARGS
+    b, t = ra["batch"], ra["prompt_len"]
+    launches = (dict(K.LAUNCHES), dict(K.LAUNCHES_BY_KERNEL))
+    before = torch.cuda.memory_allocated()
+    model, text, logits_seen, wall_s, peak = launch_in_process(
+        torch, launcher, _launcher_argv(arch, b, t, ra["gen_len"]), tag)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if (n_params, n_bytes) != (want_params, want_bytes) or n_params != count_params(
+            registry.params_abstract(cfg)):
+        raise AssertionError(f"[{tag}] {n_params} parameters in {n_bytes} bytes, expected "
+                             f"{want_params} in {want_bytes}")
+    want = [((b, 1, cfg.padded_vocab), True)] * ra["gen_len"]
+    if logits_seen != want:
+        raise AssertionError(f"[{tag}] logits (shape, finite) {logits_seen}, expected {want}")
+    pre_ms, dec_ms = launcher_lines(text, arch, b, t, tag)
+    max_len = t + ra["gen_len"]
+    cache_bytes = sum(math.prod(s.shape) * torch.empty((), dtype=s.dtype).element_size()
+                      for _, s in iter_leaves(registry.cache_abstract(cfg, b, max_len)))
+    log(f"[{tag}] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, "
+        f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}): {n_params} parameters, random from "
+        f"seed 0 (the launcher's), lm_head and the float32-cast leaves float32, the rest "
+        f"{cfg.compute_dtype}: {n_bytes} bytes ({before} allocated before); caches {cache_bytes} "
+        f"bytes at batch {b}; prompt {t} x batch {b}, {ra['gen_len'] - 1} decode steps: prefill "
+        f"{pre_ms} ms, decode {dec_ms} ms/step, every step's logits finite {list(want[0][0])}; "
+        f"launcher wall {wall_s:.2f} s with the weights' draw; peak allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    blocks = recurrent_blocks(torch, cfg, model, prompts, tag, block_t)
+
+    # warm: the launcher's prefill and three of its decode steps again on
+    # the same model and prompts, each timed with CUDA events
+    (logits, cache), warm_prefill_ms = cuda_timed(
+        torch, lambda: model.prefill({"tokens": prompts}, model.init_cache(b, max_len)))
+    first = launcher.argmax_last(logits, cfg.vocab_size)
+    tok, steps, warm_step_ms = first, [], []
+    for i in range(3):
+        pos = np.full((b, 1), t + i, np.int32)
+        (logits, cache), ms = cuda_timed(torch, lambda: model.decode_step(tok[:, None], cache, pos))
+        steps.append(logits)
+        warm_step_ms.append(ms)
+        tok = launcher.argmax_last(logits, cfg.vocab_size)
+    bound_ms = (n_bytes + 2 * cache_bytes) / HBM_BPS * 1e3
+    log(f"[{tag}] warm: prefill {warm_prefill_ms:.3f} ms, decode steps "
+        f"{[round(x, 3) for x in warm_step_ms]} ms (CUDA events) against a bound of "
+        f"{bound_ms:.3f} ms ({n_bytes} weight bytes + 2 x {cache_bytes} cache bytes at "
+        f"{HBM_BPS / 1e12} TB/s)")
+    del cache
+
+    # the state carried on the card: the prefill over the prompt and its
+    # first greedy token against the prefill over the prompt, then one
+    # decode step.  In bfloat16 the two differ by roundings that the
+    # random-weight trunk amplifies through its depth (to the size of the
+    # logits themselves: recorded, not held); at float32 compute (TF32
+    # off) on the same weights they are held within MODEL_BLOCK_TOL
+    whole = np.concatenate([prompts, first[:, None]], axis=1)
+    carried = {"bfloat16": carried_diff(torch, model, prompts, whole, first, max_len, tag)}
+    del logits, steps
+    f32 = type(model)(dataclasses.replace(cfg, compute_dtype="float32"),
+                      map_tree(lambda _, a: a.float(), model.params()))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"[{tag} carried] TF32 is on")
+    carried["float32"] = carried_diff(torch, f32, prompts, whole, first, max_len, tag)
+    err, top = carried["float32"]["max_abs_err"], carried["float32"]["max_abs"]
+    if err > MODEL_BLOCK_TOL * top:
+        raise AssertionError(f"[{tag} carried] float32: max |step - prefill| {err} > "
+                             f"{MODEL_BLOCK_TOL} * {top}")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    refused_private_head(launcher, arch, _refusal(cfg.family), tag)
+    if (dict(K.LAUNCHES), dict(K.LAUNCHES_BY_KERNEL)) != launches:
+        raise AssertionError(f"[{tag}] a TPU kernel launched: {K.LAUNCHES}")
+    log(f"[{tag}] no TPU kernel launched in this phase (the launch counters are unchanged)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "bytes": n_bytes, "cache_bytes": cache_bytes,
+            "prefill_ms": pre_ms, "decode_ms": dec_ms, "wall_s": wall_s, "peak": peak,
+            "blocks": blocks, "warm_prefill_ms": warm_prefill_ms, "warm_step_ms": warm_step_ms,
+            "bound_ms": bound_ms, "carried": carried}
+
+
+# ----------------------------------------------------------------------
+# phase 15: the sharded Phase 2
 # ----------------------------------------------------------------------
 SHARDED_MODES = ("all_to_all", "psum", "psum_scatter")
 # gloo ranks that share the one card in the d > 1 run (NCCL refuses two
@@ -2650,6 +2979,8 @@ def main() -> int:
     vlm_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args,
                           tag="vlm")
     encdec_run = phase_encdec(torch, args)
+    xlstm_run = phase_recurrent(torch, K, "xlstm")
+    zamba_run = phase_recurrent(torch, K, "zamba")
     sharded_run = phase_sharded(torch, K, ref, protocol, distributed, planner, constructions,
                                 runtime, serve, scheduler, layers, gf, args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
@@ -2677,7 +3008,8 @@ def main() -> int:
         f"peak {main_run['peak']} / {f32_run['peak']} bytes; edge peak {edge_run['peak']} bytes; "
         f"serve peak {serve_run['peak']} bytes; fuzz {fuzz_run['cases']} cases clean; "
         f"model peak {model_run['peak']} bytes; moe peak {moe_run['peak']} bytes; vlm peak "
-        f"{vlm_run['peak']} bytes; encdec peak {encdec_run['peak']} bytes; sharded peak "
+        f"{vlm_run['peak']} bytes; encdec peak {encdec_run['peak']} bytes; xlstm peak "
+        f"{xlstm_run['peak']} bytes; zamba peak {zamba_run['peak']} bytes; sharded peak "
         f"{max(sharded_run['peaks'].values())} bytes")
     print(json.dumps({"kernels": entries}))
     print(smi)

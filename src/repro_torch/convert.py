@@ -15,9 +15,11 @@ both packages' schedulers produce the same timelines, subsets and
 metrics.  ``worker_trace_from_reference`` builds the port's trace from
 the reference's fields.
 
-A model's weights and KV caches carry across by name, for every ported
-family (a decoder's, or an encoder-decoder's ``enc_layers``,
-``enc_norm`` and ``dec_layers`` with their cross-attention):
+A model's weights and caches carry across by name, for every family (a
+decoder's, an encoder-decoder's ``enc_layers``, ``enc_norm`` and
+``dec_layers`` with their cross-attention, xLSTM's ``slstm`` and
+``[G, k-1]``-stacked ``mlstm``, Zamba2's ``mamba``, ``shared`` and
+``lora``):
 ``decoder_params_from_reference`` turns the reference's parameter tree
 (numpy arrays) into a state dict for the port's ``Model``
 (``model.load_state_dict``), and ``decoder_cache_from_reference`` its
@@ -129,26 +131,43 @@ def decoder_params_from_reference(cfg, params: dict) -> dict:
     return {name: torch.from_numpy(x) for name, x in got.items()}
 
 
+def _cache_lead(cfg):
+    """The stacked cache leaf that gives batch (axis 1) and length (axis 2)."""
+    if cfg.family == "ssm":
+        return "slstm", "c"  # [G, B, d_in]: no length
+    if cfg.family == "hybrid":
+        return "shared", "k"
+    return "layers", "c" if cfg.mla else "k"
+
+
 def decoder_cache_from_reference(cfg, caches: dict) -> dict:
     """The port's cache tree on the CPU from the reference's (numpy
     arrays: bfloat16 K/V or MLA ``c`` / ``k_rope`` buffers as float32 or
     as ml_dtypes bfloat16, int32 write positions; the stacked ``layers``
     and any ``dense_{i}`` of a dense prologue; an encoder-decoder's
-    ``enc_out`` buffer and ``enc_len``), each leaf in the port's cache
-    dtype.  Batch and length come from the stacked ``k`` (``c`` under
-    MLA).  Raises ``ValueError`` on a missing, unknown or misshapen
-    leaf."""
-    lead = "c" if cfg.mla else "k"
-    layers = caches.get("layers")
-    if not isinstance(layers, dict) or lead not in layers or np.ndim(layers[lead]) < 3:
-        raise ValueError(f"reference caches: no stacked layers.{lead} [layers, batch, len, ...]")
-    shape = np.shape(layers[lead])
-    spec = dict(iter_leaves(registry.cache_abstract(cfg, shape[1], shape[2])))
+    ``enc_out`` buffer and ``enc_len``; xLSTM's float32 ``slstm`` ``c`` /
+    ``n`` / ``h`` / ``m`` and ``mlstm`` ``c`` / ``n`` / ``m``; Zamba2's
+    ``shared`` K/V/``idx`` stacked per invocation and ``mamba`` ``state``
+    / ``conv``), each leaf in the port's cache dtype, but a Mamba2
+    ``state`` or ``conv`` given in float32 stays float32: the reference's
+    prefill and steps leave those in the compute dtype.  Batch and length
+    come from the stacked ``k`` (``c`` under MLA, ``shared.k`` for
+    Zamba2, ``slstm.c`` for xLSTM, which has no length).  Raises
+    ``ValueError`` on a missing, unknown or misshapen leaf."""
+    group, lead = _cache_lead(cfg)
+    stack = caches.get(group)
+    if not isinstance(stack, dict) or lead not in stack or np.ndim(stack[lead]) < 3:
+        raise ValueError(f"reference caches: no stacked {group}.{lead} [layers, batch, ...]")
+    shape = np.shape(stack[lead])
+    length = 0 if cfg.family == "ssm" else shape[2]
+    spec = dict(iter_leaves(registry.cache_abstract(cfg, shape[1], length)))
     got = dict(iter_leaves(caches))
     _check_names("reference caches", got, spec)
     out: dict = {}
     for name, x in got.items():
         dtype = spec[name].dtype
+        if name.startswith("mamba.") and np.asarray(x).dtype == np.float32:
+            dtype = torch.float32
         host = np.array(x, np.float32 if dtype.is_floating_point else np.int64)
         node = out
         *parents, leaf = name.split(".")

@@ -4,6 +4,8 @@
         --batch 4 --prompt-len 32 --gen-len 32 [--private-head] [--device cpu]
     python -m repro_torch.launch.serve --arch internvl2-26b --private-head
     python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --prompt-len 4096 --gen-len 8
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --prompt-len 256 --gen-len 8
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --prompt-len 256 --gen-len 8
 
 The counterpart of ``repro.launch.serve``, with its flags, prompts,
 traces and printed lines.  ``--private-head`` keeps the transformer
@@ -25,10 +27,13 @@ encdec.  An encoder-decoder's prefill encodes ``--prompt-len`` frames
 drawn after the prompts, as the reference draws them) and prefills the
 decoder with the prompts' first token; decode positions then start at
 ``--prompt-len`` while the decoder's cache slot starts at 1, as there.
-ssm and hybrid wait for ROADMAP item 12.  The private head takes every
-decoder alike (DeepSeek-V2-Lite's is ``[2048, 102400]`` float32,
-InternVL2's ``[6144, 92672]``); an encoder-decoder has no split lm head,
-and ``--private-head`` refuses it after the prefill, as the reference's.
+The recurrent families: ssm (xLSTM: its prefill scans the prompts and
+keeps the final sLSTM/mLSTM states as the caches) and hybrid (Zamba2:
+Mamba2 states, and the shared attention block's KV caches).  The private
+head takes every decoder alike (DeepSeek-V2-Lite's is ``[2048, 102400]``
+float32, InternVL2's ``[6144, 92672]``); an encoder-decoder and the
+recurrent families have no split lm head, and ``--private-head`` refuses
+them after the prefill, as the reference's.
 """
 import argparse
 import time

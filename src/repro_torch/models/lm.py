@@ -33,7 +33,8 @@ Deliberate differences:
   call, so a caller's caches are left as they were.
 
 The reference's ``constrain`` calls are dropped (no-ops without sharding
-rules).  The ssm and hybrid families wait for their models (item 12).
+rules).  The ssm and hybrid families are assembled in ``hybrid`` from
+this module's embedding, head and stacking helpers.
 """
 from __future__ import annotations
 
@@ -54,15 +55,16 @@ from .attention import (
 from .common import ParamInfo, ShapeDtype, iter_leaves, map_tree, rms_norm
 from .ffn import mlp, mlp_params, moe_ffn, moe_params
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
+
+# the leaves the reference casts to float32 before each use (the xLSTM
+# gate weights and biases, Mamba2's A and step bias): kept in float32
+FLOAT32_LEAVES = frozenset({"w_if", "b_if", "w_gates", "r_gates", "b_gates", "a_log", "dt_bias"})
 
 
 def _not_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP item 12); "
-            f"only the families {PORTED_FAMILIES} are"
-        )
+        raise KeyError(f"{cfg.name}: unknown family {cfg.family!r}; the port has {PORTED_FAMILIES}")
 
 
 def _dense_layers(cfg: ModelConfig):
@@ -157,10 +159,21 @@ def stored_infos(cfg: ModelConfig, infos: Dict[str, Any]) -> Dict[str, Any]:
     for every weight the reference casts to it before each use (the
     attention, MLP and MoE matrices, the router, the norm weights, an
     untied ``embed``; the encoder-decoder's encoder and decoder blocks
-    and ``enc_norm``), float32 for ``lm_head`` and a tied ``embed``."""
+    and ``enc_norm``; xLSTM's ``w_up``, ``w_q`` / ``w_k`` / ``w_v``,
+    ``w_down`` and ``norm_w``; Mamba2's ``w_in``, ``conv_w``, ``conv_b``,
+    ``d_skip``, ``norm_w`` and ``w_out``; Zamba2's shared block and its
+    LoRA ``a_q`` / ``b_q``), float32 for ``lm_head``, a tied ``embed``
+    and every ``FLOAT32_LEAVES`` weight, which the reference casts to
+    float32 (storing those in bfloat16 would change the numbers)."""
     dt = compute_dtype(cfg)
     keep = {"lm_head"} | ({"embed"} if cfg.tie_embeddings else set())
-    return map_tree(lambda name, i: i if name in keep else dataclasses.replace(i, dtype=dt), infos)
+
+    def stored(name, info):
+        if name in keep or name.rsplit(".", 1)[-1] in FLOAT32_LEAVES:
+            return info
+        return dataclasses.replace(info, dtype=dt)
+
+    return map_tree(stored, infos)
 
 
 def _trunk(

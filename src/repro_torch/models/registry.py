@@ -1,19 +1,21 @@
 """Model registry: ``build_model(cfg)`` for the serving path.
 
-The counterpart of ``repro.models.registry`` for the decoder families
-``dense``, ``moe`` and ``vlm`` and the encoder-decoder ``encdec``.  A
+The counterpart of ``repro.models.registry`` for every family: the
+decoders ``dense``, ``moe`` and ``vlm``, the encoder-decoder ``encdec``
+and the recurrent ``ssm`` (xLSTM) and ``hybrid`` (Zamba2).  A
 :class:`Model` is a ``torch.nn.Module`` whose parameters keep the
 reference's tree and names (``embed``, ``final_norm``, ``lm_head``,
 ``layers.attn.wq``, ``layers.mlp.w_gate``, ``layers.moe.router``,
 ``dense_layer_0.attn.w_dkv``, ``enc_layers.attn.wq``,
-``dec_layers.cross_attn.wk`` ...; each stack of blocks along a leading
-layers axis), so the reference's weights load one to one
+``dec_layers.cross_attn.wk``, ``slstm.core.r_gates``,
+``mamba.core.conv_w``, ``lora.b_q`` ...; each stack of blocks along a
+leading layers axis, xLSTM's mLSTM blocks along ``[G, k-1]``), so the
+reference's weights load one to one
 (``convert.decoder_params_from_reference`` then ``load_state_dict``).
 It serves and does not train: its parameters hold no gradients.  An
-encoder-decoder (:class:`EncDecModel`) has no split lm head: its
-``hidden_step`` and ``head_matrix`` are None, as the reference's.  The
-ssm and hybrid families raise ``NotImplementedError`` naming ROADMAP
-item 12.
+encoder-decoder (:class:`EncDecModel`) and the recurrent models
+(:class:`RecurrentModel`) have no split lm head: their ``hidden_step``
+and ``head_matrix`` are None, as the reference's.
 """
 from __future__ import annotations
 
@@ -23,13 +25,20 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.protocol import resolve_device
-from . import lm
+from . import hybrid, lm
 from .common import ParamTree, ShapeDtype, map_tree, materialize
+
+_RECURRENT = {  # family: (abstract, forward, cache_abstract)
+    "ssm": (hybrid.xlstm_abstract, hybrid.xlstm_forward, hybrid.xlstm_cache_abstract),
+    "hybrid": (hybrid.zamba_abstract, hybrid.zamba_forward, hybrid.zamba_cache_abstract),
+}
 
 
 def params_abstract(cfg: ModelConfig) -> ParamTree:
     """The ParamInfo tree of ``cfg``'s family."""
     lm._not_ported(cfg)
+    if cfg.family in _RECURRENT:
+        return _RECURRENT[cfg.family][0](cfg)
     return lm.encdec_abstract(cfg) if cfg.family == "encdec" else lm.decoder_abstract(cfg)
 
 
@@ -38,10 +47,14 @@ def cache_abstract(cfg: ModelConfig, batch: int, max_len: int) -> ParamTree:
     stacked (and dense-prologue) KV or MLA buffers; an encoder-decoder's
     stacked self-attention buffers, ``enc_out`` [B, max_len, d] bfloat16
     (the encoder's output, zero-padded) and ``enc_len`` (its valid
-    length), as the reference's registry adds them."""
+    length), as the reference's registry adds them; xLSTM's stacked
+    float32 sLSTM and mLSTM states; Zamba2's stacked shared-block KV
+    buffers and bfloat16 Mamba2 states."""
+    lm._not_ported(cfg)
+    if cfg.family in _RECURRENT:
+        return _RECURRENT[cfg.family][2](cfg, batch, max_len)
     if cfg.family != "encdec":
         return lm.decoder_cache_abstract(cfg, batch, max_len)
-    lm._not_ported(cfg)
     caches = lm.encdec_cache_abstract(cfg, batch, max_len)
     caches["enc_out"] = ShapeDtype((batch, max_len, cfg.d_model), torch.bfloat16)
     caches["enc_len"] = ShapeDtype((), torch.int32)
@@ -50,7 +63,8 @@ def cache_abstract(cfg: ModelConfig, batch: int, max_len: int) -> ParamTree:
 
 def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
     """Abstract inputs for one workload cell (no allocation), the
-    reference's: int32 tokens (and train labels), bfloat16 frames of
+    reference's: int32 tokens (and train labels; tokens alone for the
+    decoders and the recurrent families), bfloat16 frames of
     an encoder-decoder (decoder tokens ``max(T // 8, 16)``, 1 at
     decode) and a vlm's bfloat16 patch prefix of ``min(frontend_len,
     T // 4)`` (the tokens fill the rest; none at decode)."""
@@ -139,11 +153,16 @@ class Model(torch.nn.Module):
         return cache_abstract(self.cfg, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int):
-        """Concrete initial caches on the model's device, all zero (the
-        reference's -1e30 fill of ssm stabiliser leaves comes with the
-        ssm families)."""
-        return map_tree(lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
-                        self.cache_abstract(batch, max_len))
+        """Concrete initial caches on the model's device, the
+        reference's: every leaf named ``m`` (a recurrent stabiliser, the
+        running max of an empty history) at -1e30, every other leaf at
+        zero."""
+
+        def leaf(name, s):
+            fill = -1e30 if name.rsplit(".", 1)[-1] == "m" else 0
+            return torch.full(s.shape, fill, dtype=s.dtype, device=self.device)
+
+        return map_tree(leaf, self.cache_abstract(batch, max_len))
 
     def batch_spec(self, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
         return batch_spec(self.cfg, shape)
@@ -188,9 +207,37 @@ class EncDecModel(Model):
         return logits, {**caches, "layers": new["layers"]}
 
 
+class RecurrentModel(Model):
+    """xLSTM (``ssm``) or Zamba2 (``hybrid``), the reference's lambdas:
+    ``forward(batch)`` the full-sequence logits; ``prefill(batch,
+    caches)`` the last logits and the caches after the prompt (xLSTM
+    scans and returns its states, not reading the caches passed in;
+    Zamba2 also writes the shared block's KV caches); ``decode_step``
+    one token from the caches (xLSTM ignores ``positions``).  No split
+    lm head: ``hidden_step`` and ``head_matrix`` are None."""
+
+    hidden_step = None
+    head_matrix = None
+
+    def _forward(self, *args, **kw):
+        return _RECURRENT[self.cfg.family][1](self.cfg, self.params(), *args, **kw)
+
+    @torch.no_grad()
+    def forward(self, batch):
+        return self._forward(batch)[0]
+
+    @torch.no_grad()
+    def prefill(self, batch, caches):
+        return self._forward(batch, caches=caches, head_mode="last", prefill=True)
+
+    @torch.no_grad()
+    def decode_step(self, tokens, caches, positions):
+        return self._forward({"tokens": tokens}, caches=caches, positions=positions)
+
+
 def build_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
     """A model of ``cfg`` (an :class:`EncDecModel` for the encdec
-    family) with weights drawn by ``materialize`` from a
+    family, a :class:`RecurrentModel` for ssm and hybrid) with weights drawn by ``materialize`` from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (default:
     the GPU), each weight in the dtype ``lm.stored_infos`` gives it."""
     infos = params_abstract(cfg)
@@ -198,4 +245,5 @@ def build_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = materialize(lm.stored_infos(cfg, infos), gen, device)
-    return (EncDecModel if cfg.family == "encdec" else Model)(cfg, params)
+    cls = {"encdec": EncDecModel, **dict.fromkeys(_RECURRENT, RecurrentModel)}.get(cfg.family, Model)
+    return cls(cfg, params)

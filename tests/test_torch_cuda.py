@@ -551,6 +551,67 @@ def test_reduced_seamless_on_the_card_equals_the_cpu_run(cuda):
     assert card.hidden_step is None and card.head_matrix is None
 
 
+RECURRENT = ("xlstm-1.3b", "zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_reduced_recurrent_model_on_the_card_equals_the_cpu_run(cuda, arch):
+    """Reduced xLSTM and Zamba2 at float32 with TF32 off, every
+    zero-initialised leaf (the gate and conv biases, A, the step bias,
+    the LoRA b_q) drawn from seeded normals on both sides: a prefill of
+    34 tokens (17 mLSTM and 17 Mamba2 chunks of 2), then three decode
+    steps, logits and every cache leaf within the float32 tolerance."""
+    from repro_torch.models import registry
+    from repro_torch.models.common import iter_leaves
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card = _model_pair(cuda, "float32", arch)
+    gen = torch.Generator().manual_seed(7)
+    kinds = {name: info.init for name, info in iter_leaves(registry.params_abstract(cfg))}
+    sd = {k: torch.randn(v.shape, generator=gen) * 0.5 if kinds[k] == "zeros" else v
+          for k, v in cpu.state_dict().items()}
+    cpu.load_state_dict(sd)
+    card.load_state_dict(sd)
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 34)).astype(np.int32)
+    caches = _decode_on_both(cfg, cpu, card, {"tokens": prompts}, 40, 34)
+    if arch == "zamba2-2.7b":
+        assert caches["shared.idx"].tolist() == [37, 37]
+    assert card.hidden_step is None and card.head_matrix is None
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_init_cache_on_the_card(cuda, arch):
+    """``init_cache`` on the device: every leaf named ``m`` at -1e30,
+    every other at zero, in the CPU model's shapes and dtypes."""
+    _, cpu, card = _model_pair(cuda, "bfloat16", arch)
+    got = card.init_cache(2, 8)
+    flat = _flat(got)
+    assert all(v.device.type == "cuda" for v in _leaves(got))
+    want = _flat(cpu.init_cache(2, 8))
+    assert {k: (v.shape, v.dtype) for k, v in flat.items()} == {
+        k: (v.shape, v.dtype) for k, v in want.items()}
+    for k, v in flat.items():
+        fill = -1e30 if k.endswith(".m") else 0
+        assert torch.equal(v, torch.full_like(v, fill)), k
+    assert any(k.endswith(".m") for k in flat) == (arch == "xlstm-1.3b")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_launcher_recurrent_runs_on_the_card(cuda, arch, capsys):
+    launcher.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "20",
+                   "--gen-len", "4"])
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "ms/step (batch 2)" in out
+    with pytest.raises(SystemExit, match="does not expose one"):
+        launcher.main(["--arch", arch, "--reduced", "--private-head", "--batch", "2",
+                       "--prompt-len", "8", "--gen-len", "4"])
+
+
 def test_launcher_encdec_runs_on_the_card(cuda, capsys):
     launcher.main(["--arch", "seamless-m4t-large-v2", "--reduced", "--batch", "2",
                    "--prompt-len", "8", "--gen-len", "4"])

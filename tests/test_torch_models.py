@@ -133,11 +133,20 @@ def test_stored_dtypes_and_init_rules():
     assert all(p.dtype == torch.float32 for p in f32.parameters())
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES
-                                  if get_config(a).family not in ("dense", "moe", "vlm", "encdec")])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tbuild(tconfigs.reduced(tconfigs.get_config(arch)), device="cpu")
+    """Every family is ported (the ssm and hybrid families of ROADMAP
+    item 12 last): the reduced model of each arch has the reference's
+    parameter names and shapes, and each weight the dtype
+    ``lm.stored_infos`` gives it."""
+    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    tm = tbuild(cfg, device="cpu")
+    ref_infos = rbuild(reduced(get_config(arch))).abstract_params()
+    ref_shapes = {n: tuple(i.shape) for n, i in tcm.iter_leaves(ref_infos)}
+    sd = tm.state_dict()
+    assert {n: tuple(p.shape) for n, p in sd.items()} == ref_shapes
+    stored = dict(tcm.iter_leaves(tlm.stored_infos(cfg, tm.abstract_params())))
+    assert {n: p.dtype for n, p in sd.items()} == {n: i.dtype for n, i in stored.items()}
 
 
 def test_converters_refuse_foreign_trees(ref_params):
