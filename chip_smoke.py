@@ -187,6 +187,31 @@ Phases (each raises on failure; the exit code is then not 0):
              sites; ``mod_matmul_crt``'s one product is held whole
              against the oracle.
 
+17. train — run after ``sharded``, before the timing above: MiniCPM-2B
+             at full width and depth (40 layers, d_model 2304, 36 x 64
+             heads, d_ff 5760, vocab 122753 padded to 122880, tied
+             embeddings, full remat; 2,725,173,504 float32 parameters
+             from seed 0) trained by ``repro_torch.launch.train.main`` in
+             process for 4 steps of 4 micro-steps of 2 x 256 tokens on
+             the WSD schedule, no checkpoint: every step's loss and
+             gradient norm finite, step 0's loss within 0.25 of ln
+             122753, the lr the schedule's, every parameter moved and
+             finite, no TPU kernel launched; the warm step's CUDA-event
+             ms and tokens/s against the FLOP bound (8 x parameters x
+             tokens at the bf16 peak), the peak, and ``adamw_update``
+             alone against its byte bound (28 B a parameter); layer 0's
+             forward and backward over 256 tokens and
+             ``chunked_softmax_xent`` over 64 against the full tied head,
+             every gradient card against CPU in float32 with TF32 off
+             within 2**-10 of each value's largest (layer 0 at bfloat16
+             recorded); the reduced MiniCPM, 6 steps card against CPU
+             from the same weights within 1e-4 relative, and 3 steps +
+             save + restore + 3 against 6 straight on the card within
+             1e-6; then the examples on the card: ``train_lm.py --profile
+             100m --steps 200`` (the loss falls by 0.25), ``quickstart.py``,
+             ``serve_lm.py`` (minicpm-2b, zamba2-2.7b) and
+             ``private_inference.py`` on one NCCL rank.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits with code 2 and prints no result.
 
@@ -2538,6 +2563,468 @@ def phase_recurrent(torch, K, tag: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 17: training
+# ----------------------------------------------------------------------
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_PARAMS = 2_725_173_504
+# repro_torch.launch.train's full-width run: the reference launcher's
+# defaults (4 micro-steps of 2 x 256 tokens, 2048 tokens a step), 4
+# steps on the WSD schedule, no checkpoint (params and AdamW moments
+# would be 32.7 GB of npz)
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "4", "--seq-len", "256", "--global-batch", "8",
+              "--microbatch-seqs", "2", "--mesh", "1x1", "--log-every", "1"]
+TRAIN_TOKENS = 256 * 8
+TRAIN_LR = 3e-4
+# step 0's loss: near-uniform logits (tied embed init 0.02, logit_scale
+# 256/2304) over the 122,753 real tokens
+TRAIN_LOSS0_TOL = 0.25
+# blocks card against CPU in float32 with TF32 off, of each value's
+# largest |cpu| entry
+TRAIN_BLOCK_TOL = 2.0**-10
+TRAIN_XENT_TOKENS = 64
+# the reduced MiniCPM on the card against the CPU (float32 compute)
+TRAIN_REDUCED = dict(steps=6, seq_len=32, global_batch=4, microbatch_seqs=2)
+TRAIN_REDUCED_RTOL = 1e-4
+# the resume check's bar: the reference test's (tests/test_checkpoint.py)
+TRAIN_RESUME_TOL = 1e-6
+# examples/torch/train_lm.py --profile 100m: the mean of the last 5
+# logged losses below the first 5 by the reference test's margin
+TRAIN_LM_ARGV = ["--profile", "100m", "--steps", "200"]
+TRAIN_LM_MARGIN = 0.25
+TRAIN_SAMPLE = 4096  # leading entries of each leaf kept to see the update
+
+
+def train_in_process(torch, launcher, argv, tag):
+    """``launcher.main(argv)`` (``repro_torch.launch.train``) in process on
+    the card, its printed lines logged as ``[{tag} launcher]``: (the
+    model it built, a sample of each parameter as built, per step the
+    metrics and the step's CUDA-event ms, the printed text, peak
+    allocated bytes)."""
+    import contextlib
+    import io
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    built, samples, steps = [], {}, []
+    build, build_step = launcher.build_model, launcher.build_train_step
+
+    def keeping(cfg, **kw):
+        built.append(build(cfg, **kw))
+        for name, p in built[-1].named_parameters():
+            samples[name] = p.detach().reshape(-1)[:TRAIN_SAMPLE].clone()
+        return built[-1]
+
+    class Timed:
+        def __init__(self, step):
+            self.step, self.opt_cfg = step, step.opt_cfg
+
+        def __call__(self, params, opt, batch):
+            out, ms = cuda_timed(torch, lambda: self.step(params, opt, batch))
+            steps.append({"ms": ms, **{k: float(v) for k, v in out[2].items()}})
+            return out
+
+    launcher.build_model = keeping
+    launcher.build_train_step = lambda *a, **kw: Timed(build_step(*a, **kw))
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            launcher.main(argv)
+    finally:
+        launcher.build_model, launcher.build_train_step = build, build_step
+    peak = torch.cuda.max_memory_allocated()
+    text = printed.getvalue()
+    for line in text.splitlines():
+        log(f"[{tag} launcher] {line}")
+    return built[0], samples, steps, text, peak
+
+
+def grads_close(torch, card: dict, cpu: dict, tol: float, what: str, tag: str) -> dict:
+    """max |card - cpu| / max |cpu| of each value; raises past ``tol``."""
+    out = {}
+    for name, c in card.items():
+        c, r = c.float().cpu(), cpu[name].float()
+        err, top = float((c - r).abs().max()), float(r.abs().max())
+        if not bool(torch.isfinite(c).all()) or err > tol * top:
+            raise AssertionError(f"[{tag} block] {what} {name}: max |card - cpu| {err} > "
+                                 f"{tol} * {top}")
+        out[name] = err / top
+    return out
+
+
+def train_breakdown(torch, cfg, model, tag) -> dict:
+    """One micro-step of the full-width run again (the first 2 rows of
+    the data's step-0 batch), warm: the loss's forward and its backward
+    by CUDA events, the CUDA kernel launches the host issued for them
+    (``cudaLaunchKernel`` calls under ``torch.profiler``, which counts
+    them on the host even where it loses device activities), and the
+    allocator's retries over the whole phase so far."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+
+    full = SyntheticLM(DataConfig(cfg.vocab_size, 256, 8)).batch(0)
+    micro = {k: v[:2] for k, v in full.items()}
+    params = model.params()
+
+    def once():
+        loss, _ = registry.loss(cfg, params, micro)
+        loss.backward()
+
+    once()
+    (loss, _), fwd_ms = cuda_timed(torch, lambda: registry.loss(cfg, params, micro))
+    _, bwd_ms = cuda_timed(torch, loss.backward)
+    del loss
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        once()
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()}
+    launches = sum(n for k, n in names.items() if k.startswith("cudaLaunchKernel"))
+    aten = sum(n for k, n in names.items() if k.startswith("aten::"))
+    model.zero_grad(set_to_none=True)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    log(f"[{tag} breakdown] one micro-step (2 x 256 tokens), warm: forward {fwd_ms:.3f} ms, "
+        f"backward (with the remat forward) {bwd_ms:.3f} ms (CUDA events); {launches} kernel "
+        f"launches and {aten} aten ops (nested ones counted) from the host for one forward "
+        f"and backward; allocator retries so far {retries}")
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "launches": launches, "aten_ops": aten,
+            "alloc_retries": retries}
+
+
+def train_blocks(torch, cfg, model, tag) -> dict:
+    """Layer 0's forward and backward over 1 x 256 tokens (the embeddings
+    of the first 256 of the data's step-0 row; a fixed random cotangent),
+    and ``chunked_softmax_xent`` over 64 hidden states against the full
+    tied head: every gradient on the card in float32 with TF32 off
+    against the CPU in float32, within ``TRAIN_BLOCK_TOL`` of each
+    value's largest; layer 0 again with bfloat16 compute on the card
+    (recorded, not held)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import common, lm
+    from repro_torch.models.common import map_tree
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"[{tag} block] TF32 is on")
+    params = model.params()
+    layer0 = map_tree(lambda _, a: a.detach()[0].clone(), params["layers"])
+    tokens = SyntheticLM(DataConfig(cfg.vocab_size, 256, 8)).batch(0)["tokens"][:1]
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(BLOCK_SEED)
+    with torch.no_grad():
+        x = lm._embed_tokens(cfg, params, torch.as_tensor(tokens, device="cuda").long(),
+                             torch.float32).cpu()
+    cot = torch.randn(x.shape, generator=gen)
+    pos = torch.arange(x.shape[1]).expand(x.shape[:2])
+
+    def block(c, device):
+        # fresh leaves on each side (``to`` returns the tensor itself on
+        # its own device)
+        leaves = map_tree(lambda _, a: a.detach().to(device).requires_grad_(True), layer0)
+        xi = x.detach().to(device).requires_grad_(True)
+        out = lm._block_apply(c, leaves, xi.to(lm.compute_dtype(c)), pos.to(device))[0]
+        (out.float() * cot.to(device)).sum().backward()
+        grads = {f"layers.{n}": a.grad for n, a in common.iter_leaves(leaves)}
+        return {"out": out.detach(), "x": xi.grad, **grads}
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu = block(f32, "cpu")
+    card, card_ms = cuda_timed(torch, lambda: block(f32, "cuda"))
+    errs = grads_close(torch, card, cpu, TRAIN_BLOCK_TOL, "layer 0", tag)
+    bf16 = block(dataclasses.replace(cfg, compute_dtype="bfloat16"), "cuda")
+    bf16_errs = {n: float((v.float().cpu() - cpu[n]).abs().max() / cpu[n].abs().max())
+                 for n, v in bf16.items()}
+    log(f"[{tag} block] layer 0 forward and backward over {tuple(x.shape)}, float32, TF32 off: "
+        f"card {card_ms:.3f} ms; max |card - cpu| / max |cpu| of the output, the input's and "
+        f"every parameter's gradient: worst {max(errs.values()):.3e} <= {TRAIN_BLOCK_TOL} "
+        f"({ {k: round(v, 9) for k, v in errs.items()} }); at bfloat16 compute (recorded): worst "
+        f"{max(bf16_errs.values()):.3e}")
+    del card, bf16
+
+    head_full = params["embed"].detach()
+    hidden = torch.randn((1, TRAIN_XENT_TOKENS, cfg.d_model), generator=gen)
+    labels = torch.as_tensor(tokens[:, :TRAIN_XENT_TOKENS]).long()
+
+    def xent(device):
+        emb = head_full.detach().to(device).clone().requires_grad_(True)
+        h = hidden.detach().to(device).requires_grad_(True)
+        loss = common.chunked_softmax_xent(h, emb.T, labels.to(device),
+                                           logit_scale=cfg.logit_scale, n_vocab=cfg.vocab_size)
+        loss.backward()
+        return {"loss": loss.detach(), "hidden": h.grad, "head": emb.grad}
+
+    cpu_x = xent("cpu")
+    card_x, xent_ms = cuda_timed(torch, lambda: xent("cuda"))
+    xerrs = grads_close(torch, card_x, cpu_x, TRAIN_BLOCK_TOL, "chunked_softmax_xent", tag)
+    log(f"[{tag} block] chunked_softmax_xent over {TRAIN_XENT_TOKENS} tokens against the tied "
+        f"head {list(head_full.T.shape)} (padded columns masked), float32: card {xent_ms:.3f} "
+        f"ms; loss {float(cpu_x['loss']):.6f}; max |card - cpu| / max |cpu| {xerrs} <= "
+        f"{TRAIN_BLOCK_TOL}")
+    return {"layer0": errs, "layer0_bf16": bf16_errs, "xent": xerrs}
+
+
+def reduced_train(torch, tag) -> dict:
+    """The reduced MiniCPM (float32 compute) on the card against the CPU
+    from the same weights (drawn on the CPU, carried by ``convert``),
+    ``TRAIN_REDUCED['steps']`` train steps each: the losses within
+    ``TRAIN_REDUCED_RTOL`` relative.  Then the resume check on the card:
+    3 steps, save, restore into a fresh model, 3 steps, against the 6
+    straight, within ``TRAIN_RESUME_TOL`` (and whether bit-exact)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.common import iter_leaves, map_tree
+    from repro_torch.train.optimizer import adamw_init
+
+    r = TRAIN_REDUCED
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(TRAIN_ARCH)),
+                              compute_dtype="float32")
+    weights = map_tree(lambda _, a: a.detach().numpy(),
+                       build_model(cfg, seed=0, device="cpu", train=True).params())
+    shape = dataclasses.replace(configs.SHAPES["train_4k"], seq_len=r["seq_len"],
+                                global_batch=r["global_batch"])
+    data = SyntheticLM(DataConfig(cfg.vocab_size, r["seq_len"], r["global_batch"]))
+
+    def fresh(device):
+        model = build_model(cfg, seed=1, device=device, train=True)
+        model.load_state_dict(convert.decoder_params_from_reference(cfg, weights))
+        return model
+
+    def run(device, first, last, model=None, opt=None):
+        model = model or fresh(device)
+        step = steps.build_train_step(model, shape, schedule="wsd", total_steps=r["steps"],
+                                      microbatch_seqs=r["microbatch_seqs"])
+        params = model.params()
+        opt = opt or adamw_init(params, step.opt_cfg)
+        losses = []
+        for i in range(first, last):
+            params, opt, m = step(params, opt, data.batch(i))
+            losses.append(float(m["loss"]))
+        return model, opt, losses
+
+    t0 = time.perf_counter()
+    _, _, cpu_losses = run("cpu", 0, r["steps"])
+    straight, straight_opt, card_losses = run("cuda", 0, r["steps"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    if rel > TRAIN_REDUCED_RTOL:
+        raise AssertionError(f"[{tag} reduced] card losses {card_losses} against the CPU's "
+                             f"{cpu_losses}: {rel} > {TRAIN_REDUCED_RTOL}")
+    log(f"[{tag} reduced] reduced {TRAIN_ARCH} (float32 compute, TF32 off), {r['steps']} steps of "
+        f"{r['global_batch']} x {r['seq_len']} tokens on the card against the CPU: losses "
+        f"{[round(x, 6) for x in card_losses]}, worst relative difference {rel:.3e} <= "
+        f"{TRAIN_REDUCED_RTOL} ({time.perf_counter() - t0:.1f} s)")
+
+    half = r["steps"] // 2
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        model, opt, _ = run("cuda", 0, half)
+        mgr = CheckpointManager(tmp)
+        mgr.save(half, {"params": model.params(), "opt": opt._asdict()})
+        resumed = fresh("cuda")
+        saved_step, resumed_opt = steps.restore_train_state(mgr, resumed.params(), opt)
+        resumed, resumed_opt, _ = run("cuda", saved_step, r["steps"], resumed, resumed_opt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff = max(float((a.detach() - b.detach()).abs().max())
+               for (_, a), (_, b) in zip(iter_leaves(straight.params()),
+                                         iter_leaves(resumed.params())))
+    exact = diff == 0.0 and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(iter_leaves(straight_opt.nu),
+                                                    iter_leaves(resumed_opt.nu)))
+    if diff > TRAIN_RESUME_TOL:
+        raise AssertionError(f"[{tag} resume] {half} + save + restore + {half} steps differ from "
+                             f"{r['steps']} straight by {diff} > {TRAIN_RESUME_TOL}")
+    log(f"[{tag} resume] {half} steps + save + restore + {half} steps against {r['steps']} "
+        f"straight on the card: max |diff| of the parameters {diff:.3e} <= {TRAIN_RESUME_TOL} "
+        f"(the reference test's bar; bit-exact, moments too: {exact})")
+    return {"losses": card_losses, "cpu_losses": cpu_losses, "rel": rel, "resume_diff": diff,
+            "resume_exact": exact}
+
+
+def run_example(name: str, argv: list, tag: str) -> str:
+    """``examples/torch/{name}.py``'s ``main(argv)`` in process on the
+    card; its printed lines logged as ``[{tag} {name}]``; the text."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  ROOT / "examples" / "torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        module.main(argv)
+    text = printed.getvalue()
+    for line in text.splitlines():
+        log(f"[{tag} {name}] {line}")
+    log(f"[{tag} {name}] ran in {time.perf_counter() - t0:.2f} s")
+    return text
+
+
+def train_examples(torch, tag) -> dict:
+    """The four examples on the card: ``train_lm.py --profile 100m
+    --steps 200`` (checkpoints under a temporary directory of build/; the
+    mean of the last 5 logged losses at least ``TRAIN_LM_MARGIN`` below
+    the first 5; steps/s), ``quickstart.py`` with its exact asserts,
+    ``serve_lm.py`` for minicpm-2b and zamba2-2.7b at the reduced width,
+    and ``private_inference.py`` on one NCCL rank (every request served,
+    relative error below 0.15: its own asserts)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        text = run_example("train_lm", TRAIN_LM_ARGV + ["--ckpt-dir", tmp], tag)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [float(m[1]) for m in re.finditer(r"loss ([0-9.]+)", text)]
+    steps = int(TRAIN_LM_ARGV[TRAIN_LM_ARGV.index("--steps") + 1])
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not (len(losses) >= 10 and last < first - TRAIN_LM_MARGIN):
+        raise AssertionError(f"[{tag} train_lm] losses {losses}: the loss did not fall")
+    log(f"[{tag} train_lm] {' '.join(TRAIN_LM_ARGV)}: mean of the first 5 logged losses "
+        f"{first:.4f}, of the last 5 {last:.4f} (fell {first - last:.4f} >= {TRAIN_LM_MARGIN}); "
+        f"{steps / wall:.2f} steps/s over the example's wall ({wall:.2f} s, with the build and "
+        f"the checkpoints)")
+    run_example("quickstart", [], tag)
+    for arch in ("minicpm-2b", "zamba2-2.7b"):
+        out = run_example("serve_lm", ["--arch", arch], tag)
+        if f"arch={arch}" not in out or "device=cuda" not in out:
+            raise AssertionError(f"[{tag} serve_lm] {arch} printed {out!r}")
+    out = run_example("private_inference", [], tag)
+    if "ranks as workers: 1 (cuda" not in out:
+        raise AssertionError(f"[{tag} private_inference] printed {out!r}")
+    return {"train_lm_losses": losses, "train_lm_steps_per_s": steps / wall}
+
+
+def phase_train(torch, K) -> dict:
+    """MiniCPM-2B at full width and depth trained through
+    ``repro_torch.launch.train.main`` in process (``TRAIN_ARGV``; weights
+    from seed 0, the launcher's own; float32 master weights, bfloat16
+    compute, full remat).  Raises unless the parameters are
+    ``TRAIN_PARAMS`` float32 ones, every step's loss and gradient norm
+    are finite, step 0's loss is within ``TRAIN_LOSS0_TOL`` of
+    ln(vocab), every step's lr is ``get_schedule("wsd", 3e-4, 4)`` at
+    that step, every parameter moved and is finite, and no TPU kernel
+    launched.  Prints the warm step ms (CUDA events, steps 1-3) against
+    the FLOP bound, tokens/s, the peak, and the AdamW update alone
+    against its byte bound.  Then the blocks at full width
+    (``train_blocks``), the reduced card-against-CPU and resume checks
+    (``reduced_train``) and the examples (``train_examples``).  Frees the
+    model before it returns."""
+    import gc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import registry
+    from repro_torch.models.common import count_params, iter_leaves, map_tree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update, get_schedule
+
+    tag = "train"
+    phase_t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    launches = (dict(K.LAUNCHES), dict(K.LAUNCHES_BY_KERNEL))
+    t0 = time.perf_counter()
+    model, samples, steps, text, peak = train_in_process(torch, launcher, TRAIN_ARGV, tag)
+    wall_s = time.perf_counter() - t0
+    if (dict(K.LAUNCHES), dict(K.LAUNCHES_BY_KERNEL)) != launches:
+        raise AssertionError(f"[{tag}] a TPU kernel launched: {K.LAUNCHES}")
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    if (n_params, n_bytes) != (TRAIN_PARAMS, 4 * TRAIN_PARAMS) or n_params != count_params(
+            registry.params_abstract(cfg)):
+        raise AssertionError(f"[{tag}] {n_params} parameters in {n_bytes} bytes, expected "
+                             f"{TRAIN_PARAMS} float32")
+    n_steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+    schedule = get_schedule("wsd", TRAIN_LR, n_steps)
+    want_lr = [float(schedule(torch.tensor(i + 1, dtype=torch.int32))) for i in range(n_steps)]
+    if len(steps) != n_steps or "done" not in text or f"training {TRAIN_ARCH} on cuda" not in text:
+        raise AssertionError(f"[{tag}] {len(steps)} steps ran; the launcher printed {text!r}")
+    for i, m in enumerate(steps):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"[{tag}] step {i}: {m}")
+        if abs(m["lr"] - want_lr[i]) > 1e-6 * want_lr[i]:
+            raise AssertionError(f"[{tag}] step {i}: lr {m['lr']} != wsd's {want_lr[i]}")
+    uniform = math.log(cfg.vocab_size)
+    if abs(steps[0]["loss"] - uniform) > TRAIN_LOSS0_TOL:
+        raise AssertionError(f"[{tag}] step 0's loss {steps[0]['loss']} is not within "
+                             f"{TRAIN_LOSS0_TOL} of ln {cfg.vocab_size} = {uniform}")
+    moved = [n for n, p in params.items()
+             if not torch.equal(p.detach().reshape(-1)[:TRAIN_SAMPLE], samples[n])]
+    finite = all(bool(torch.isfinite(p).all()) for p in params.values())
+    if len(moved) != len(params) or not finite:
+        raise AssertionError(f"[{tag}] parameters that did not move: "
+                             f"{sorted(set(params) - set(moved))}; all finite: {finite}")
+    warm = [m["ms"] for m in steps[1:]]
+    step_ms = statistics.mean(warm)
+    flop_bound_ms = 8 * n_params * TRAIN_TOKENS / FP16_TC_FLOPS * 1e3
+    log(f"[{tag}] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} x {cfg.resolved_head_dim} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}), remat {cfg.remat_policy}: {n_params} "
+        f"float32 parameters ({n_bytes} bytes), random from seed 0 (the launcher's); {n_steps} "
+        f"steps of {TRAIN_TOKENS} tokens (4 micro-steps of 2 x 256), losses "
+        f"{[round(m['loss'], 4) for m in steps]} (step 0 within {TRAIN_LOSS0_TOL} of ln vocab = "
+        f"{uniform:.4f}), grad norms {[round(m['grad_norm'], 4) for m in steps]}, lr "
+        f"{[m['lr'] for m in steps]} (the wsd schedule's); every parameter moved and finite; no "
+        f"TPU kernel launched")
+    log(f"[{tag}] step ms (CUDA events) {[round(m['ms'], 3) for m in steps]}: warm (steps 1-"
+        f"{n_steps - 1}) {step_ms:.3f} ms, {TRAIN_TOKENS / step_ms * 1e3:.1f} tokens/s, against a "
+        f"FLOP bound of {flop_bound_ms:.3f} ms (8 x {n_params} parameters x {TRAIN_TOKENS} tokens: "
+        f"forward, backward and the remat forward, at {FP16_TC_FLOPS / 1e12:.0f} TFLOP/s bf16) "
+        f"= {flop_bound_ms / step_ms:.3f} of it; launcher wall {wall_s:.2f} s with the weights' "
+        f"draw; peak allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+
+    breakdown = train_breakdown(torch, cfg, model, tag)
+    blocks = train_blocks(torch, cfg, model, tag)
+
+    # the AdamW update alone, at full width: fresh moments and a constant
+    # gradient (its work does not depend on the values)
+    tree = model.params()
+    opt_cfg = AdamWConfig(lr=schedule)
+    opt = adamw_init(tree, opt_cfg)
+    grads = map_tree(lambda _, p: torch.full_like(p, 1e-3), tree)
+    with torch.no_grad():
+        _, opt, _ = adamw_update(grads, opt, tree, opt_cfg)
+        adamw_ms = [cuda_timed(torch, lambda: adamw_update(grads, opt, tree, opt_cfg))[1]
+                    for _ in range(3)]
+    adamw_bound_ms = 28 * n_params / HBM_BPS * 1e3
+    log(f"[{tag}] adamw_update alone over {n_params} float32 parameters: "
+        f"{[round(x, 3) for x in adamw_ms]} ms (CUDA events) against a byte bound of "
+        f"{adamw_bound_ms:.3f} ms (28 B a parameter: p, g, mu, nu read, p, mu, nu written, at "
+        f"{HBM_BPS / 1e12} TB/s) = {adamw_bound_ms / statistics.mean(adamw_ms):.3f} of it")
+    del grads, opt, tree, params, model, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reduced = reduced_train(torch, tag)
+    examples = train_examples(torch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - phase_t0
+    log(f"[{tag}] phase wall {phase_s:.2f} s: the full-width launch, its breakdown, the blocks, "
+        f"the AdamW update, the reduced checks and the examples")
+    return {"phase_s": phase_s, "params": n_params, "steps": steps, "step_ms": step_ms, "flop_bound_ms": flop_bound_ms,
+            "adamw_ms": adamw_ms, "adamw_bound_ms": adamw_bound_ms, "peak": peak,
+            "breakdown": breakdown, "blocks": blocks, "reduced": reduced, "examples": examples,
+            "wall_s": wall_s}
+
+
+# ----------------------------------------------------------------------
 # phase 15: the sharded Phase 2
 # ----------------------------------------------------------------------
 SHARDED_MODES = ("all_to_all", "psum", "psum_scatter")
@@ -2983,6 +3470,7 @@ def main() -> int:
     zamba_run = phase_recurrent(torch, K, "zamba")
     sharded_run = phase_sharded(torch, K, ref, protocol, distributed, planner, constructions,
                                 runtime, serve, scheduler, layers, gf, args)
+    train_run = phase_train(torch, K)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
     entries += site_entries(torch, K, ref, f32_run, "f32", args)
     entries += edge_entries(torch, K, ref, edge_run, args)
@@ -3010,7 +3498,8 @@ def main() -> int:
         f"model peak {model_run['peak']} bytes; moe peak {moe_run['peak']} bytes; vlm peak "
         f"{vlm_run['peak']} bytes; encdec peak {encdec_run['peak']} bytes; xlstm peak "
         f"{xlstm_run['peak']} bytes; zamba peak {zamba_run['peak']} bytes; sharded peak "
-        f"{max(sharded_run['peaks'].values())} bytes")
+        f"{max(sharded_run['peaks'].values())} bytes; train peak {train_run['peak']} bytes, "
+        f"step {train_run['step_ms']:.3f} ms, phase {train_run['phase_s']:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

@@ -23,7 +23,13 @@ decoder's, an encoder-decoder's ``enc_layers``, ``enc_norm`` and
 ``decoder_params_from_reference`` turns the reference's parameter tree
 (numpy arrays) into a state dict for the port's ``Model``
 (``model.load_state_dict``), and ``decoder_cache_from_reference`` its
-cache tree into the port's.  This module reads numpy only.
+cache tree into the port's.  A training state carries across too:
+``opt_state_from_reference`` turns the reference's ``AdamWState`` (its
+``_asdict()`` as numpy trees) into the port's float32 moments, and
+``train_state_to_reference`` takes the port's parameters and optimizer
+state back to flat numpy arrays under the reference's ``/`` paths
+(``params/layers/attn/wq``, ``opt/step``, ``opt/mu/embed`` ...), the
+keys of both packages' checkpoints.  This module reads numpy only.
 """
 from __future__ import annotations
 
@@ -32,10 +38,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from .checkpoint.manager import flatten
 from .core.protocol import CONST_FIELDS, INDEX_FIELDS, DevicePlan, device_plan_from_arrays
 from .models import registry
-from .models.common import iter_leaves
+from .models.common import iter_leaves, map_tree
 from .runtime.pool import FaultSpec, WorkerTrace
+from .train.optimizer import AdamWState
 
 FIELDS = CONST_FIELDS + INDEX_FIELDS
 
@@ -175,3 +183,27 @@ def decoder_cache_from_reference(cfg, caches: dict) -> dict:
             node = node.setdefault(part, {})
         node[leaf] = torch.from_numpy(host).to(dtype)
     return out
+
+
+def opt_state_from_reference(cfg, opt: dict, device="cpu") -> AdamWState:
+    """The port's ``AdamWState`` on ``device`` from the reference's
+    (``state._asdict()`` with numpy leaves: ``step``, and ``mu`` / ``nu``
+    trees shaped as ``cfg``'s parameters): an int32 step and float32
+    moments.  Raises ``ValueError`` on a missing, unknown or misshapen
+    moment."""
+    want = dict(iter_leaves(registry.params_abstract(cfg)))
+    moments = {}
+    for key in ("mu", "nu"):
+        got = dict(iter_leaves(opt[key]))
+        _check_names(f"reference optimizer {key}", got, want)
+        moments[key] = map_tree(
+            lambda _, x: torch.from_numpy(np.array(x, np.float32)).to(device), opt[key])
+    step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=device)
+    return AdamWState(step=step, **moments)
+
+
+def train_state_to_reference(params: dict, opt: AdamWState) -> dict:
+    """``{"params/...": array, "opt/step": array, "opt/mu/...": array,
+    "opt/nu/...": array}``: the port's parameters and optimizer state as
+    host numpy arrays under the reference's ``/`` paths."""
+    return flatten({"params": params, "opt": opt._asdict()})

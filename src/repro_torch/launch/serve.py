@@ -19,7 +19,7 @@ simulated protocol time.
 The port runs on one device: ``--mesh`` takes ``elastic`` or ``1x1``,
 both meaning that device.  A ``(data, model)`` mesh of several devices
 shards the model (``distributed/sharding.py``) and waits for ROADMAP
-item 13.  The ported families: dense; moe (DBRX's GQA trunk,
+13b.  The ported families: dense; moe (DBRX's GQA trunk,
 DeepSeek-V2's MLA trunk with its dense first layer); vlm (InternVL2's
 decoder; the launcher, as the reference's, passes no patches); and
 encdec.  An encoder-decoder's prefill encodes ``--prompt-len`` frames
@@ -48,6 +48,16 @@ from ..models import build_model
 ONE_DEVICE_MESHES = ("elastic", "1x1")
 
 
+def one_device_mesh(mesh: str) -> None:
+    """Raises unless ``--mesh`` names the one device the port runs on."""
+    if mesh not in ONE_DEVICE_MESHES:
+        raise NotImplementedError(
+            f"--mesh {mesh}: the port runs on one device ({' or '.join(ONE_DEVICE_MESHES)}); "
+            "a (data, model) mesh of several devices waits for the model's sharding "
+            "(distributed/sharding.py, ROADMAP 13b)"
+        )
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -73,12 +83,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="the device (default: the GPU)")
     args = ap.parse_args(argv)
 
-    if args.mesh not in ONE_DEVICE_MESHES:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port runs on one device ({' or '.join(ONE_DEVICE_MESHES)}); "
-            "a (data, model) mesh of several devices waits for the model's sharding "
-            "(distributed/sharding.py, ROADMAP item 13)"
-        )
+    one_device_mesh(args.mesh)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)

@@ -1,5 +1,6 @@
-"""Language models for serving: the dense, MoE and vlm decoders (with a
-private head), the encoder-decoder, and the recurrent xLSTM and Zamba2.
+"""Language models for serving and training: the dense, MoE and vlm
+decoders (with a private head), the encoder-decoder, and the recurrent
+xLSTM and Zamba2.
 
 The counterpart of ``repro.models`` for every ``family`` (``common``,
 the GQA and MLA parts of ``attention`` with cross-attention, the MLP

@@ -1,22 +1,27 @@
 """Shared model machinery: spec-carrying parameters, norms, RoPE.
 
-The counterpart of ``repro.models.common`` for the serving path.
-Parameters are declared as ``ParamInfo`` leaves (shape + logical axes +
-initializer + dtype) in nested dicts; ``materialize`` turns such a tree
-into tensors.  The logical axes are kept so the declarations read as
-the reference's, though one device shards nothing.
+The counterpart of ``repro.models.common``.  Parameters are declared
+as ``ParamInfo`` leaves (shape + logical axes + initializer + dtype) in
+nested dicts; ``materialize`` turns such a tree into tensors and
+``abstract`` into ``ShapeDtype`` leaves.  The logical axes are kept so
+the declarations read as the reference's, though one device shards
+nothing: ``partition_specs`` waits for the model's sharding (ROADMAP
+13b).
 
-``partition_specs``, ``abstract``, ``remat_wrap`` and the cross-entropy
-losses serve the mesh and training and are not ported yet (ROADMAP
-item 13).
+``remat_wrap`` and the cross-entropy losses serve training: the
+policies ``full`` and ``dots`` are ``torch.utils.checkpoint`` (all of a
+block recomputed in the backward pass, or all but its matmul outputs),
+applied only while gradients are recorded.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +91,11 @@ def materialize(tree: ParamTree, generator: torch.Generator, device=None) -> Par
     return map_tree(leaf, tree)
 
 
+def abstract(tree: ParamTree) -> ParamTree:
+    """The ``ShapeDtype`` of every ParamInfo leaf (no storage)."""
+    return map_tree(lambda _, i: ShapeDtype(tuple(i.shape), i.dtype), tree)
+
+
 def count_params(tree: ParamTree) -> int:
     """Elements of a tree of ParamInfo, ShapeDtype or tensor leaves."""
     return sum(
@@ -118,3 +128,101 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# training: rematerialisation and the token cross-entropy
+# ----------------------------------------------------------------------
+# the matmuls whose outputs the ``dots`` policy keeps: products with no
+# batch dimension, as ``dots_with_no_batch_dims_saveable`` keeps them
+# (``x @ W`` with a 3-d x reaches autograd as ``mm``)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the reference's remat policy: ``none`` keeps every
+    activation, ``full`` keeps only the inputs and recomputes the rest
+    in the backward pass, ``dots`` keeps the outputs of the products
+    with no batch dimension as well.  All three give the same gradients.
+    Without gradients (``torch.no_grad``, serving) ``fn`` runs as it is."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        kw = {}
+    elif policy == "dots":
+        kw = {"context_fn": functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                              _dots_policy)}
+    else:
+        raise ValueError(f"unknown remat policy {policy}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the blocks draw no random numbers, so no rng state is kept
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return wrapped
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, z_weight: float = 0.0) -> torch.Tensor:
+    """Token cross-entropy with optional z-loss; logits [..., V], in
+    float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_weight:
+        loss = loss + z_weight * lse.square()
+    return loss
+
+
+def chunked_softmax_xent(
+    x: torch.Tensor,  # [B, T, d] final hidden states
+    head: torch.Tensor,  # [d, V_padded]
+    labels: torch.Tensor,  # [B, T]; -1 = ignore
+    logit_scale: float = 1.0,
+    chunk: int = 16_384,
+    n_vocab: int = 0,  # real vocab; padded columns >= n_vocab are masked
+) -> torch.Tensor:
+    """The mean cross-entropy of the labelled tokens without ever
+    materialising [B, T, V] logits: the tokens go in chunks of
+    ``min(chunk, B T)`` (the last padded with -1 labels), each under
+    ``remat_wrap(..., "full")``, so at most one [chunk, V] float32
+    logits block is alive, in the forward pass and in the backward.
+    Padded vocabulary columns get -1e30.  Exact, as the reference's."""
+    b, t, d = x.shape
+    n = b * t
+    chunk = min(chunk, n)
+    xf = x.reshape(n, d)
+    lf = labels.reshape(n)
+    pad = (-n) % chunk
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
+        lf = torch.nn.functional.pad(lf, (0, pad), value=-1)
+    vpad = head.shape[-1]
+    col_ok = None
+    if n_vocab and n_vocab < vpad:
+        col_ok = (torch.arange(vpad, device=x.device) < n_vocab)[None, :]
+
+    def body(xs, ls, head):
+        logits = (xs @ head.to(xs.dtype)).float() * logit_scale
+        if col_ok is not None:
+            logits = torch.where(col_ok, logits, -1e30)
+        per = softmax_xent(logits, ls.clamp_min(0))
+        mask = (ls >= 0).float()
+        return (per * mask).sum(), mask.sum()
+
+    body = remat_wrap(body, "full")
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xs, ls in zip(xf.split(chunk), lf.split(chunk)):
+        s, c = body(xs, ls, head)
+        loss_sum = loss_sum + s
+        count = count + c
+    return loss_sum / count.clamp_min(1.0)

@@ -15,8 +15,12 @@ added to the residual stream beside the attention output, not to q.
 Both forwards return (logits | hidden, new caches): the reference's
 third value is a zero auxiliary loss.  A decode step builds new caches
 and leaves the caller's as they were.  The reference's ``constrain``
-calls and remat policy have no effect on one device without gradients
-and are dropped; its scans over the stacks are Python loops.
+calls have no effect on one device and are dropped; its scans over the
+stacks are Python loops over stacks unbound once (``lm._layers``).  The
+reference's remat units run under ``remat_wrap(cfg.remat_policy)``: an
+xLSTM group (its sLSTM block and the k-1 mLSTM blocks after it) and each
+Mamba2 layer.  Without gradients (serving) the wrapper calls them
+directly.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import gqa_attention, gqa_cache_spec, gqa_params
-from .common import ParamInfo, ShapeDtype, map_tree, rms_norm
+from .common import ParamInfo, ShapeDtype, map_tree, remat_wrap, rms_norm
 from .ffn import mlp, mlp_params
 from .lm import _embed_tokens, _layers, _logits, compute_dtype, stack_infos
 from .ssm import mamba_cache_spec, mamba_decode_step, mamba_params, mamba_scan
@@ -117,16 +121,26 @@ def xlstm_forward(cfg: ModelConfig, params, batch, caches=None, positions=None,
     decode = caches is not None and not prefill
     g, km = cfg.num_layers // cfg.xlstm.slstm_every, cfg.xlstm.slstm_every - 1
     new_s, new_m = _Stacker((g,), x.device), _Stacker((g, km), x.device)
-    for i, ps in enumerate(_layers(params["slstm"])):
+
+    def group(xc, i, ps, pms):
+        # a state is made only when decoding or prefilling (serving, without
+        # gradients, where the wrapper calls this directly): each is copied
+        # into its stack as soon as it is made
         cs = _at(caches["slstm"], i) if decode else None
-        x, state = _block(cfg, slstm_decode_step, slstm_scan, ps, x, cs, decode, prefill)
+        xc, state = _block(cfg, slstm_decode_step, slstm_scan, ps, xc, cs, decode, prefill)
         if state is not None:
             new_s.put(i, state)
-        for j, pm in enumerate(_layers(_at(params["mlstm"], i))):
+        for j, pm in enumerate(pms):
             cm = _at(caches["mlstm"], i, j) if decode else None
-            x, state = _block(cfg, mlstm_decode_step, mlstm_scan, pm, x, cm, decode, prefill)
+            xc, state = _block(cfg, mlstm_decode_step, mlstm_scan, pm, xc, cm, decode, prefill)
             if state is not None:
                 new_m.put((i, j), state)
+        return xc
+
+    group = remat_wrap(group, cfg.remat_policy)
+    groups = zip(_layers(params["slstm"]), map(_layers, _layers(params["mlstm"])))
+    for i, (ps, pms) in enumerate(groups):
+        x = group(x, i, ps, pms)
     new_caches = {"slstm": new_s.out, "mlstm": new_m.out} if (decode or prefill) else None
     return _logits(cfg, params, x, head_mode), new_caches
 
@@ -208,14 +222,21 @@ def zamba_forward(cfg: ModelConfig, params, batch, caches=None, positions=None,
     new_shared = map_tree(lambda _, c: c.clone(), caches["shared"]) if use_cache else None
     new_mamba = _Stacker((cfg.num_layers,), x.device)
     layers = _layers(params["mamba"])
+
+    def mamba(xc, i, pm):
+        # as xLSTM's group: a state is made only when serving, without gradients
+        cm = _at(caches["mamba"], i) if decode else None
+        xc, state = _block(cfg, mamba_decode_step, mamba_scan, pm, xc, cm, decode, prefill)
+        if state is not None:
+            new_mamba.put(i, state)
+        return xc
+
+    mamba = remat_wrap(mamba, cfg.remat_policy)
     for inv in range(cfg.num_layers // k):
         cache_inv = _at(new_shared, inv) if use_cache else None
         x, _ = _shared_block(cfg, params["shared"], params["lora"], inv, x, positions, cache_inv)
         for i in range(inv * k, (inv + 1) * k):
-            cm = _at(caches["mamba"], i) if decode else None
-            x, state = _block(cfg, mamba_decode_step, mamba_scan, layers[i], x, cm, decode, prefill)
-            if state is not None:
-                new_mamba.put(i, state)
+            x = mamba(x, i, layers[i])
     new_caches = None
     if use_cache or prefill:
         new_caches = {"shared": new_shared, "mamba": new_mamba.out}

@@ -15,19 +15,24 @@ stacked the same way, with ``dense_{i}`` beside them.
 Deliberate differences:
 
 * ``_trunk`` is a Python loop over the dense prologue and the stacked
-  layers.  The reference scans the stack (``scan_layers``) under a remat
-  policy (``remat_policy``); on one device and without gradients both
-  change only how JAX compiles the program, so here they have no effect.
+  layers (the reference scans the stack under ``scan_layers``; here it
+  has no effect).  The stack is unbound once per forward (``_layers``),
+  so under autograd the backward stacks the layers' gradients once
+  instead of writing a zero-filled ``[L, ...]`` gradient per layer.
+  Each stacked block runs under ``remat_wrap(cfg.remat_policy)`` when it
+  has no cache (the loss path), as the reference's ``body``; the caches
+  path (serving) is never wrapped.
 * ``stored_infos`` keeps each weight that the reference casts to
   ``compute_dtype`` before every use in that dtype (the forward computes
   the same numbers from half the bytes); ``lm_head`` and a tied
   ``embed`` stay float32, as ``head_matrix`` reads them.  That includes
   the MoE router and expert stacks, which the reference also casts
-  before each use.
+  before each use.  A trainable model keeps every weight in float32
+  (``param_dtype``), as the reference: the same casts give the same
+  forward.
 * ``decoder_forward`` returns two values.  The reference's third, the
-  MoE auxiliary loss, only feeds ``decoder_loss``, which waits for
-  training (ROADMAP item 13); ``_trunk`` sums it all the same.  So do
-  the vlm label padding of ``decoder_loss`` and ``encdec_loss``.
+  MoE auxiliary loss, only feeds ``decoder_loss``, which takes it from
+  ``_decoder_hidden``.
 * ``encode`` and ``decode_stack`` loop over their stacked layers as
   ``_trunk`` does; ``decode_stack`` copies the decoder's caches once per
   call, so a caller's caches are left as they were.
@@ -52,7 +57,15 @@ from .attention import (
     mla_cache_spec,
     mla_params,
 )
-from .common import ParamInfo, ShapeDtype, iter_leaves, map_tree, rms_norm
+from .common import (
+    ParamInfo,
+    ShapeDtype,
+    chunked_softmax_xent,
+    iter_leaves,
+    map_tree,
+    remat_wrap,
+    rms_norm,
+)
 from .ffn import mlp, mlp_params, moe_ffn, moe_params
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
@@ -78,9 +91,11 @@ def stack_infos(tree, n: int):
 
 
 def _layers(stacked: Dict[str, Any]):
-    """The per-layer parameter trees of a stacked tree, in order."""
+    """The per-layer parameter trees of a stacked tree, in order: each
+    leaf unbound once along its leading axis."""
     n = next(iter_leaves(stacked))[1].shape[0]
-    return [map_tree(lambda _, a: a[i], stacked) for i in range(n)]
+    rows = map_tree(lambda _, a: a.unbind(0), stacked)
+    return [map_tree(lambda _, r: r[i], rows) for i in range(n)]
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -184,11 +199,13 @@ def _trunk(
     caches: Optional[Dict] = None,
 ):
     """Run all blocks: the dense prologue layers, then a loop over the
-    stacked ``layers`` axis (the reference's scan; ``scan_layers`` and
-    ``remat_policy`` have no effect here).  The caches are copied once,
-    and each layer writes its tokens into its own copy or its slice of
-    the stacked copy: the caller's are left as they were.  Returns (x,
-    new caches, the summed MoE aux terms)."""
+    stacked ``layers`` axis (the reference's scan; ``scan_layers`` has no
+    effect here), each stacked block under ``remat_wrap(cfg.remat_policy)``
+    as the reference's ``body`` (a plain call without gradients, so
+    serving is never checkpointed).  The caches are copied once, and each
+    layer writes its tokens into its own copy or its slice of the stacked
+    copy: the caller's are left as they were.  Returns (x, new caches, the
+    summed MoE aux terms)."""
     new_caches = None
     if caches is not None:
         new_caches = map_tree(lambda _, c: c.clone(), caches)
@@ -197,9 +214,11 @@ def _trunk(
         cl = None if caches is None else new_caches[f"dense_{i}"]
         x, _, aux = _block_apply(cfg, params[f"dense_layer_{i}"], x, positions, cl)
         aux_total = aux_total + aux
+    body = remat_wrap(lambda pl, xc, cl: _block_apply(cfg, pl, xc, positions, cl)[::2],
+                      cfg.remat_policy)
     for i, pl in enumerate(_layers(params["layers"])):
         cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
-        x, _, aux = _block_apply(cfg, pl, x, positions, cl)
+        x, aux = body(pl, x, cl)
         aux_total = aux_total + aux
     return x, new_caches, aux_total
 
@@ -223,21 +242,9 @@ def _embed_tokens(cfg: ModelConfig, params, tokens, dtype):
     return x * _scalar(cfg.scale_emb, dtype)
 
 
-def decoder_forward(
-    cfg: ModelConfig,
-    params: Dict[str, Any],
-    batch: Dict[str, Any],
-    caches: Optional[Dict] = None,
-    positions=None,
-    head_mode: str = "full",
-):
-    """Returns (logits | hidden, new_caches).  The reference's third
-    value, the MoE auxiliary loss, feeds only ``decoder_loss`` (training,
-    ROADMAP item 13) and is not returned.  A vlm batch's ``patches``
-    [B, P, d] go before the token embeddings, in ``compute_dtype``; the
-    default positions then span both.  ``batch["tokens"]``,
-    ``batch["patches"]`` and ``positions`` may be numpy arrays or
-    tensors; they move to the parameters' device."""
+def _decoder_hidden(cfg: ModelConfig, params, batch, caches=None, positions=None):
+    """The trunk's output before the final norm, the new caches and the
+    summed MoE aux terms: ``decoder_forward``'s work up to ``_logits``."""
     _not_ported(cfg)
     dt = compute_dtype(cfg)
     dev = params["embed"].device
@@ -249,8 +256,46 @@ def decoder_forward(
         positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
     else:
         positions = torch.as_tensor(positions, device=dev)
-    x, new_caches, _ = _trunk(cfg, params, x, positions, caches)
+    return _trunk(cfg, params, x, positions, caches)
+
+
+def decoder_forward(
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    batch: Dict[str, Any],
+    caches: Optional[Dict] = None,
+    positions=None,
+    head_mode: str = "full",
+):
+    """Returns (logits | hidden, new_caches).  The reference's third
+    value, the MoE auxiliary loss, feeds only ``decoder_loss`` and is not
+    returned.  A vlm batch's ``patches`` [B, P, d] go before the token
+    embeddings, in ``compute_dtype``; the default positions then span
+    both.  ``batch["tokens"]``, ``batch["patches"]`` and ``positions``
+    may be numpy arrays or tensors; they move to the parameters'
+    device."""
+    x, new_caches, _ = _decoder_hidden(cfg, params, batch, caches, positions)
     return _logits(cfg, params, x, head_mode), new_caches
+
+
+def _labels(params, labels) -> torch.Tensor:
+    return torch.as_tensor(labels, device=params["embed"].device).long()
+
+
+def decoder_loss(cfg: ModelConfig, params, batch):
+    """(the token cross-entropy of ``batch["labels"]`` plus the MoE aux
+    term, {"xent", "aux"}), the reference's: a vlm's patch positions get
+    -1 labels (ignored), and the head's padded columns are masked."""
+    x, _, aux = _decoder_hidden(cfg, params, batch)
+    hidden = _logits(cfg, params, x, head_mode="none")
+    labels = _labels(params, batch["labels"])
+    if cfg.family == "vlm" and "patches" in batch:
+        pad = torch.full(tuple(batch["patches"].shape[:2]), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = chunked_softmax_xent(hidden, _head(cfg, params), labels,
+                                logit_scale=cfg.logit_scale, n_vocab=cfg.vocab_size)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def decoder_cache_abstract(cfg: ModelConfig, batch: int, max_len: int):
@@ -349,8 +394,9 @@ def encode(cfg: ModelConfig, params, frames) -> torch.Tensor:
     dev = params["embed"].device
     x = torch.as_tensor(frames, device=dev).to(compute_dtype(cfg))
     positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
+    body = remat_wrap(lambda pl, xc: _enc_block_apply(cfg, pl, xc, positions), cfg.remat_policy)
     for pl in _layers(params["enc_layers"]):
-        x = _enc_block_apply(cfg, pl, x, positions)
+        x = body(pl, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -389,10 +435,23 @@ def decode_stack(cfg: ModelConfig, params, tokens, enc_out, caches=None, positio
     new_caches = None
     if caches is not None:
         new_caches = {"layers": {k: c.clone() for k, c in caches["layers"].items()}}
+    body = remat_wrap(
+        lambda pl, xc, cl: _dec_block_apply(cfg, pl, xc, positions, enc_out, cl, enc_valid)[0],
+        cfg.remat_policy)
     for i, pl in enumerate(_layers(params["dec_layers"])):
         cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
-        x, _ = _dec_block_apply(cfg, pl, x, positions, enc_out, cl, enc_valid)
+        x = body(pl, x, cl)
     return _logits(cfg, params, x, head_mode), new_caches
+
+
+def encdec_loss(cfg: ModelConfig, params, batch):
+    """(the decoder's token cross-entropy against the encoded
+    ``batch["frames"]``, {"xent", "aux": 0})."""
+    enc_out = encode(cfg, params, batch["frames"])
+    hidden, _ = decode_stack(cfg, params, batch["tokens"], enc_out, head_mode="none")
+    loss = chunked_softmax_xent(hidden, _head(cfg, params), _labels(params, batch["labels"]),
+                                logit_scale=cfg.logit_scale, n_vocab=cfg.vocab_size)
+    return loss, {"xent": loss, "aux": torch.zeros((), dtype=torch.float32, device=loss.device)}
 
 
 def encdec_cache_abstract(cfg: ModelConfig, batch: int, max_len: int):

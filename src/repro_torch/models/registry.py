@@ -12,10 +12,16 @@ reference's tree and names (``embed``, ``final_norm``, ``lm_head``,
 leading layers axis, xLSTM's mLSTM blocks along ``[G, k-1]``), so the
 reference's weights load one to one
 (``convert.decoder_params_from_reference`` then ``load_state_dict``).
-It serves and does not train: its parameters hold no gradients.  An
-encoder-decoder (:class:`EncDecModel`) and the recurrent models
-(:class:`RecurrentModel`) have no split lm head: their ``hidden_step``
-and ``head_matrix`` are None, as the reference's.
+A serving model (``build_model``'s default) holds each weight in the
+dtype ``lm.stored_infos`` gives it, records no gradients, and its
+serving methods run under ``torch.no_grad``.  A trainable model
+(``build_model(..., train=True)``) holds every weight in float32, the
+reference's ``param_dtype``, with ``requires_grad``: ``loss(batch)``
+is the reference's ``Model.loss`` on them (``loss`` below), and the
+trainer's AdamW keeps float32 master weights.  An encoder-decoder
+(:class:`EncDecModel`) and the recurrent models (:class:`RecurrentModel`)
+have no split lm head: their ``hidden_step`` and ``head_matrix`` are
+None, as the reference's.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.protocol import resolve_device
 from . import hybrid, lm
-from .common import ParamTree, ShapeDtype, map_tree, materialize
+from .common import ParamTree, ShapeDtype, chunked_softmax_xent, map_tree, materialize
 
 _RECURRENT = {  # family: (abstract, forward, cache_abstract)
     "ssm": (hybrid.xlstm_abstract, hybrid.xlstm_forward, hybrid.xlstm_cache_abstract),
@@ -88,14 +94,37 @@ def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
     return spec
 
 
-def _register(module: torch.nn.Module, tree: ParamTree) -> None:
+def loss(cfg: ModelConfig, params: ParamTree, batch) -> tuple:
+    """The reference's ``Model.loss``: (scalar float32 loss, {"xent",
+    "aux"}) of ``batch`` (``tokens`` and ``labels``, -1 ignored; a vlm's
+    ``patches``; an encoder-decoder's ``frames``) under ``params``.  The
+    decoders add the MoE aux term; the recurrent families' is zero
+    (``_generic_loss``)."""
+    lm._not_ported(cfg)
+    if cfg.family in _RECURRENT:
+        return _generic_loss(cfg, _RECURRENT[cfg.family][1], params, batch)
+    if cfg.family == "encdec":
+        return lm.encdec_loss(cfg, params, batch)
+    return lm.decoder_loss(cfg, params, batch)
+
+
+def _generic_loss(cfg, fwd, params, batch):
+    hidden, _ = fwd(cfg, params, batch, head_mode="none")
+    labels = torch.as_tensor(batch["labels"], device=hidden.device).long()
+    xent = chunked_softmax_xent(hidden, lm._head(cfg, params), labels,
+                                logit_scale=cfg.logit_scale, n_vocab=cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return xent + aux, {"xent": xent, "aux": aux}
+
+
+def _register(module: torch.nn.Module, tree: ParamTree, requires_grad: bool) -> None:
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
             child = torch.nn.Module()
-            _register(child, leaf)
+            _register(child, leaf, requires_grad)
             module.add_module(name, child)
         else:
-            module.register_parameter(name, torch.nn.Parameter(leaf, requires_grad=False))
+            module.register_parameter(name, torch.nn.Parameter(leaf, requires_grad=requires_grad))
 
 
 def _tree(module: torch.nn.Module) -> ParamTree:
@@ -110,12 +139,13 @@ class Model(torch.nn.Module):
     ``prefill(batch, caches)``, ``decode_step(tokens, caches,
     positions)``, ``hidden_step(tokens, caches, positions)``,
     ``head_matrix()``, ``init_cache(batch, max_len)`` and
-    ``batch_spec(shape)``."""
+    ``batch_spec(shape)``; and ``loss(batch)``, with gradients when the
+    parameters require them (``train``)."""
 
-    def __init__(self, cfg: ModelConfig, params: ParamTree):
+    def __init__(self, cfg: ModelConfig, params: ParamTree, train: bool = False):
         super().__init__()
         self.cfg = cfg
-        _register(self, params)
+        _register(self, params, train)
 
     @property
     def device(self) -> torch.device:
@@ -127,6 +157,10 @@ class Model(torch.nn.Module):
     def params(self) -> ParamTree:
         """The parameters as the reference's nested dict."""
         return _tree(self)
+
+    def loss(self, batch):
+        """(loss, {"xent", "aux"}): ``loss`` on the model's parameters."""
+        return loss(self.cfg, self.params(), batch)
 
     @torch.no_grad()
     def forward(self, batch):
@@ -235,15 +269,17 @@ class RecurrentModel(Model):
         return self._forward({"tokens": tokens}, caches=caches, positions=positions)
 
 
-def build_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
+def build_model(cfg: ModelConfig, *, seed: int = 0, device=None, train: bool = False) -> Model:
     """A model of ``cfg`` (an :class:`EncDecModel` for the encdec
-    family, a :class:`RecurrentModel` for ssm and hybrid) with weights drawn by ``materialize`` from a
-    ``torch.Generator`` seeded with ``seed``, on ``device`` (default:
-    the GPU), each weight in the dtype ``lm.stored_infos`` gives it."""
+    family, a :class:`RecurrentModel` for ssm and hybrid) with weights
+    drawn by ``materialize`` from a ``torch.Generator`` seeded with
+    ``seed``, on ``device`` (default: the GPU): to serve, each weight in
+    the dtype ``lm.stored_infos`` gives it; to ``train``, every weight in
+    float32 with ``requires_grad``."""
     infos = params_abstract(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = materialize(lm.stored_infos(cfg, infos), gen, device)
+    params = materialize(infos if train else lm.stored_infos(cfg, infos), gen, device)
     cls = {"encdec": EncDecModel, **dict.fromkeys(_RECURRENT, RecurrentModel)}.get(cfg.family, Model)
-    return cls(cfg, params)
+    return cls(cfg, params, train)

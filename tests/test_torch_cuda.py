@@ -715,3 +715,104 @@ def test_mesh_edge_and_serving_on_the_card_equal_the_cpu_run(meshes, backend):
     assert card_rep.summary() == cpu_rep.summary() and card_rep.summary()["served"] == 4
     for rc_, rp_ in zip(card_rep.requests, cpu_rep.requests):
         np.testing.assert_array_equal(rc_.y, rp_.y)
+
+
+# ----------------------------------------------------------------------
+# the training path (float32 compute, TF32 off: the card against the CPU)
+# ----------------------------------------------------------------------
+def _reduced_trainer(device, weights=None):
+    from repro_torch import convert
+
+    cfg = dataclasses.replace(configs.reduced(configs.get_config("minicpm-2b")),
+                              compute_dtype="float32")
+    model = build_model(cfg, seed=0, device=device, train=True)
+    if weights is not None:
+        model.load_state_dict(convert.decoder_params_from_reference(cfg, weights))
+    return cfg, model
+
+
+def test_reduced_train_step_on_the_card_equals_the_cpu_run(cuda):
+    """Three train steps of the reduced MiniCPM from the same weights:
+    metrics within 1e-4 relative, parameters within 2 x the summed
+    learning rates (an entry with a near-zero gradient can take either
+    sign of m / sqrt(v)) and within 1e-5 for all but 1e-3 of them."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.common import iter_leaves, map_tree
+    from repro_torch.train.optimizer import adamw_init
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu_model = _reduced_trainer("cpu")
+    weights = map_tree(lambda _, a: a.detach().numpy(), cpu_model.params())
+    _, card_model = _reduced_trainer(cuda, weights)
+    shape = dataclasses.replace(configs.SHAPES["train_4k"], seq_len=32, global_batch=4)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4))
+    runs = []
+    for model in (cpu_model, card_model):
+        step = build_train_step(model, shape, lr=1e-3, schedule="wsd", total_steps=3)
+        params, opt, metrics = model.params(), None, []
+        opt = adamw_init(params, step.opt_cfg)
+        for i in range(3):
+            params, opt, m = step(params, opt, data.batch(i))
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append((params, metrics))
+    (cpu_params, cpu_m), (card_params, card_m) = runs
+    for c, g in zip(cpu_m, card_m):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-9), (k, c, g)
+    bound = 2 * sum(m["lr"] for m in cpu_m)
+    beyond = total = 0
+    for (name, c), (_, g) in zip(iter_leaves(cpu_params), iter_leaves(card_params)):
+        assert g.device.type == "cuda"
+        diff = (g.detach().cpu() - c.detach()).abs()
+        assert float(diff.max()) <= bound, name
+        beyond += int((diff > 1e-5).sum())
+        total += diff.numel()
+    assert beyond / total < 1e-3
+
+
+def test_chunked_softmax_xent_on_the_card(cuda):
+    """The loss and both gradients over 100 tokens in chunks of 32 (the
+    last padded) against a head of 1000 padded to 1024 columns, -1 labels
+    ignored: the card within 2**-10 of each value's largest."""
+    from repro_torch.models.common import chunked_softmax_xent
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 25, 64), generator=gen)
+    head = torch.randn((64, 1024), generator=gen) * 0.2
+    labels = torch.randint(0, 1000, (4, 25), generator=gen)
+    labels[1, 3] = labels[3, 24] = -1
+    out = {}
+    for device in ("cpu", cuda):
+        # fresh leaves on each side (``to`` returns the tensor itself on its device)
+        xs = x.detach().to(device).requires_grad_(True)
+        hs = head.detach().to(device).requires_grad_(True)
+        loss = chunked_softmax_xent(xs, hs, labels.to(device), logit_scale=0.3, chunk=32,
+                                    n_vocab=1000)
+        loss.backward()
+        out[str(device)] = (loss.detach().cpu(), xs.grad.cpu(), hs.grad.cpu())
+    for c, g in zip(out["cpu"], out["cuda"]):
+        assert float((g - c).abs().max()) <= 2.0**-10 * float(c.abs().max())
+
+
+def test_checkpoint_round_trip_from_the_card(cuda, tmp_path):
+    """A trainable model's parameters and AdamW state saved from the card
+    restore exactly onto the card and onto the CPU."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.common import iter_leaves, map_tree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    _, model = _reduced_trainer(cuda)
+    opt = adamw_init(model.params(), AdamWConfig(lr=None))
+    opt.mu["embed"].normal_()
+    state = {"params": model.params(), "opt": opt._asdict()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(7, state)
+    for device in (cuda, torch.device("cpu")):
+        template = map_tree(lambda _, a: torch.zeros_like(a, device=device), state)
+        step, got = mgr.restore(template)
+        assert step == 7
+        for (name, a), (_, b) in zip(iter_leaves(state), iter_leaves(got)):
+            assert b.device.type == device.type and b.dtype == a.dtype, name
+            assert torch.equal(b.cpu(), a.detach().cpu()), name

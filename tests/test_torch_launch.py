@@ -126,7 +126,7 @@ def test_launcher_greedy_decode_in_process(arch, capsys):
 
 def test_launcher_refuses_what_is_not_ported():
     base = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "4", "--gen-len", "2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP 13b"):
         tserve.main(["--arch", ARCH, "--mesh", "2x4", *base])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
