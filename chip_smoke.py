@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--batch 4] [--reps 5]
     python3 chip_smoke.py --variant-path f32|int32 [--src DIR] [--k 5120]
+    python3 chip_smoke.py --only train|mesh|staging [--src DIR]
 
 Phases (each raises on failure; the exit code is then not 0):
 
@@ -211,9 +212,41 @@ Phases (each raises on failure; the exit code is then not 0):
              100m --steps 200`` (the loss falls by 0.25), ``quickstart.py``,
              ``serve_lm.py`` (minicpm-2b, zamba2-2.7b) and
              ``private_inference.py`` on one NCCL rank.
+18. mesh  — after ``train``: 4 spawned ranks (one NCCL rank a card
+             with 4 cards or more, else gloo ranks sharing card 0 whose
+             DTensor collectives run as plain gloo ones,
+             ``distributed.staged``) on a 2x2 (data, model) mesh.
+             ``[mesh train]``: MiniCPM-2B at full width and depth, FSDP +
+             TP from ``param_pspecs``, 2 steps of
+             ``build_train_step`` at the launcher's defaults (2 micro-steps
+             of 2 x 256 tokens a data shard): step 0's loss within 1e-3
+             relative of the one-device model's on the same weights and
+             rows and of ``[train]``'s step 0, CUDA-event ms, tokens/s,
+             each rank's peak in training (read after the build, whose
+             own peak is printed beside it) and serving;
+             ``[mesh comm]``: one micro-step's all-gathers, reduce-scatters
+             and all-reduces (``comm.CollectiveLog``) and the bytes a rank
+             sends, equal to ``comm.design_collectives``' from the spec
+             tables;
+             ``[mesh train reduced]``: the reduced model at float32, 2 steps
+             on the mesh against one rank, every parameter within 1e-5 of
+             its leaf's largest; ``[mesh serve]``: the sharded prefill (4 x
+             256) and 8 decode steps against the one-device model, logits
+             within 2**-5 of the largest, greedy tokens equal where the
+             top-2 margin exceeds that; ``[pipeline]``: ``pipeline_forward``
+             over 4 stages of 10 blocks (float32, 8 micro-batches of 256
+             tokens) against the sequential trunk within 2**-10 of its
+             largest value, ms and bubble.  No TPU kernel launches on any
+             rank.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits with code 2 and prints no result.
+
+``--only train`` runs only ``[train]``'s launcher (its warm step ms,
+from the ``--src`` tree); ``--only mesh`` only the mesh phases (no
+``[train]`` loss to hold step 0 against beyond the one-device model's);
+``--only staging`` only the comparison of a gloo collective's two forms
+on ranks sharing the card (``staging_rank``).  Each prints one JSON line.
 
 ``--variant-path`` runs none of the phases above.  It times one kernel
 variant at each launch site of ``run_batched`` (at contraction depth
@@ -230,6 +263,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import os
 import re
 import shutil
@@ -2566,6 +2600,7 @@ def phase_recurrent(torch, K, tag: str) -> dict:
 # phase 17: training
 # ----------------------------------------------------------------------
 TRAIN_ARCH = "minicpm-2b"
+TRAIN_LAYERS = 40
 TRAIN_PARAMS = 2_725_173_504
 # repro_torch.launch.train's full-width run: the reference launcher's
 # defaults (4 micro-steps of 2 x 256 tokens, 2048 tokens a step), 4
@@ -2801,7 +2836,7 @@ def reduced_train(torch, tag) -> dict:
 
     def run(device, first, last, model=None, opt=None):
         model = model or fresh(device)
-        step = steps.build_train_step(model, shape, schedule="wsd", total_steps=r["steps"],
+        step = steps.build_train_step(model, None, shape, schedule="wsd", total_steps=r["steps"],
                                       microbatch_seqs=r["microbatch_seqs"])
         params = model.params()
         opt = opt or adamw_init(params, step.opt_cfg)
@@ -3414,6 +3449,548 @@ def sharded_entries(torch, K, ref, sharded: dict, entries: list, args) -> list:
     return new
 
 
+# ----------------------------------------------------------------------
+# phase 18: the model on a (data, model) mesh
+# ----------------------------------------------------------------------
+MESH_RANKS = 4
+MESH_SHAPE = (2, 2)
+# [mesh train], [mesh comm] and [mesh serve] run MiniCPM-2B at full width
+# and depth (a rehearsal or a probe may cut the layers here).  Two steps,
+# one of them warm: a full-depth step of gloo ranks sharing the card is
+# ~45 s on an H100 80GB HBM3 at 700 W, and a third took the script to
+# 1060 s of its 1200 s limit (PERF.md).
+MESH_LAYERS = TRAIN_LAYERS
+MESH_TRAIN = dict(seq_len=256, global_batch=8, microbatch_seqs=2, steps=2)
+MESH_LOSS0_RTOL = 1e-3
+MESH_REDUCED = dict(seq_len=32, global_batch=8, microbatch_seqs=2, steps=2)
+MESH_REDUCED_TOL = 1e-5
+MESH_SERVE = dict(batch=4, prompt_len=256, gen_len=8)
+MESH_SERVE_TOL = 2.0**-5  # tests/test_torch_models.py's bf16_tol, of the largest logit
+PIPE = dict(stages=4, layers=10, micro=8, tokens=256)
+PIPE_TOL = 2.0**-10
+PIPE_SEED = 4321
+MESH_JOIN_SECONDS = 900
+
+
+def mesh_rank(rank: int, d: int, src: str, store: str, out: str, nccl: bool, device: str) -> None:
+    """One of ``d`` ranks of the mesh phases (NCCL, one card each, or gloo
+    ranks sharing card 0): [mesh train] and [mesh comm] at full width on a
+    2x2 mesh, [mesh train reduced] against one rank, [mesh serve] against
+    the one-device model (rank 0), and [pipeline] over a 4-stage mesh
+    against the sequential trunk (rank 0).  ``device == "cpu"``
+    rehearses the phases on gloo CPU ranks at the reduced width and short
+    sequences.  Writes its lines and numbers as JSON to ``out``."""
+    sys.path.insert(0, src)
+    import contextlib
+    import dataclasses
+    import faulthandler
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import comm, staged
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.sharding import activation_rules, batch_shardings, place
+    from repro_torch.kernels.modmatmul import kernel as K
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.models import build_model, lm, registry
+    from repro_torch.models.common import iter_leaves, materialize
+    from repro_torch.train.optimizer import adamw_init
+
+    faulthandler.enable()
+    torch.set_num_threads(1)
+    card = device == "cuda"
+    if card:
+        dev = torch.device("cuda", rank if nccl else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        dev = torch.device("cpu")
+    lines, res = [], {"rank": rank}
+
+    def say(text):
+        # rank 0 prints as it goes (a run cut short still shows how far it got)
+        lines.append(text)
+        if rank == 0:
+            log(text)
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        if card:
+            return cuda_timed(torch, fn)
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if card else 0
+
+    def free():
+        gc.collect()
+        sync()
+        if card:
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+    backend = "nccl" if nccl else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(store, d), rank=rank, world_size=d,
+                            device_id=dev if nccl else None)
+    launches = (dict(K.LAUNCHES), dict(K.LAUNCHES_BY_KERNEL))
+    stack = contextlib.ExitStack()
+    try:
+        if not nccl:  # gloo ranks sharing a card: DTensor's collectives as plain gloo ones
+            stack.enter_context(staged.host_collectives())
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), dev.type)
+        res["backend"] = dist.get_backend()
+        cfg = configs.get_config(TRAIN_ARCH)
+        t, sv, pp = dict(MESH_TRAIN), dict(MESH_SERVE), dict(PIPE)
+        if not card:
+            cfg = dataclasses.replace(configs.reduced(cfg), remat_policy="full")
+            t.update(seq_len=32)
+            sv.update(prompt_len=16)
+            pp.update(tokens=16, layers=2)
+        if card:
+            cfg = dataclasses.replace(cfg, num_layers=MESH_LAYERS)
+        # [mesh train]: the sharded train step at the launcher's defaults
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, seed=0, device=dev, train=True, mesh=mesh)
+        build_s = time.perf_counter() - t0
+        # the build's peak (each leaf drawn whole, then cut to the shard)
+        # apart from the steps'
+        build_peak = peak()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        shape = dataclasses.replace(configs.SHAPES["train_4k"], seq_len=t["seq_len"],
+                                    global_batch=t["global_batch"])
+        bundle = tsteps.build_train_step(model, mesh, shape, lr=TRAIN_LR, schedule="wsd",
+                                         total_steps=t["steps"],
+                                         microbatch_seqs=t["microbatch_seqs"])
+        params = model.params()
+        opt = adamw_init(params, bundle.opt_cfg)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, t["seq_len"], t["global_batch"]))
+        metrics = []
+        for i in range(t["steps"]):
+            (params, opt, m), ms = timed(lambda: bundle(params, opt, data.batch(i)))
+            metrics.append({"ms": ms, **{k: float(v) for k, v in m.items()}})
+            if rank == 0:
+                log(f"[mesh train] step {i}: loss {metrics[-1]['loss']:.4f}, {ms:.1f} ms")
+        warm = statistics.mean(m["ms"] for m in metrics[1:])
+        tokens = t["seq_len"] * t["global_batch"]
+        n_params = sum(p.numel() for _, p in iter_leaves(params))
+        res["train"] = {"metrics": metrics, "warm_ms": warm, "tokens_per_s": tokens / warm * 1e3,
+                        "layers": cfg.num_layers, "build_peak": build_peak,
+                        "peak": peak(), "n_micro": bundle.n_micro,
+                        "params": n_params, "build_s": build_s}
+        if rank == 0:
+            say(f"[mesh train] {TRAIN_ARCH} ({cfg.num_layers} layers, {n_params} float32 "
+                f"parameters, seed 0) on {describe(mesh)} ({backend}): {t['steps']} steps of "
+                f"{bundle.n_micro} micro-steps x {t['global_batch'] // bundle.n_micro} x "
+                f"{t['seq_len']} tokens; losses {[round(m['loss'], 4) for m in metrics]}, grad "
+                f"norms {[round(m['grad_norm'], 4) for m in metrics]}; step ms (CUDA events) "
+                f"{[round(m['ms'], 1) for m in metrics]}, warm {warm:.1f} ms = "
+                f"{tokens / warm * 1e3:.1f} tokens/s; built and sharded in {build_s:.1f} s")
+
+        # [mesh comm]: one warm micro-step's collectives against the design
+        mb = dataclasses.replace(shape, global_batch=t["global_batch"] // bundle.n_micro)
+        rows = {k: v[: mb.global_batch] for k, v in data.batch(0).items()}
+        sync()
+        c0 = time.perf_counter()
+        with comm.CollectiveLog(sites=True) as rec, tsteps.sharded(activation_rules(mesh)):
+            loss, _ = registry.loss(cfg, params, place(rows, batch_shardings(
+                model.batch_spec(mb), mesh), mesh))
+            loss.backward()
+            for p in model.parameters():
+                tsteps._as_placed(p.grad, p)
+        sync()
+        micro_s = time.perf_counter() - c0
+        for p in model.parameters():
+            p.grad = None
+        want = comm.design_collectives(cfg, dict(zip(("data", "model"), MESH_SHAPE)),
+                                       mb.global_batch, t["seq_len"])
+        res["comm"] = {"counts": dict(rec.counts), "sent": dict(rec.sent), "want": want,
+                       "micro_s": micro_s}
+        if dict(rec.counts) != want["counts"] or dict(rec.sent) != want["sent"]:
+            raise AssertionError(f"[mesh comm] rank {rank}: collectives {dict(rec.counts)}, "
+                                 f"sending {dict(rec.sent)} bytes; the design predicts "
+                                 f"{want['counts']}, {want['sent']}; by site:\n{rec.report()}")
+        if rank == 0:
+            say(f"[mesh comm] one micro-step ({mb.global_batch} x {t['seq_len']} tokens, forward, "
+                f"remat forward, backward, gradients onto their shards) in {micro_s:.2f} s: "
+                f"collectives {dict(rec.counts)} and the bytes a rank sends {dict(rec.sent)} == "
+                f"the design's from the spec tables ({want['layer_leaves']} FSDP leaves a "
+                f"layer, replicated {want['replicated']}; the lookup's gradient reduce-scattered "
+                f"from the rank's vocab rows)")
+        n_micro = bundle.n_micro
+        del model, params, opt, bundle, loss
+        free()
+        # step 0's loss on one device, from the same weights and micro-batches
+        if rank == 0:
+            one = build_model(cfg, seed=0, device=dev, train=True)
+            b, rows = t["global_batch"] // n_micro, data.batch(0)
+            with torch.no_grad():
+                one_loss = statistics.mean(
+                    float(registry.loss(cfg, one.params(), {k: v[i * b:(i + 1) * b]
+                                                            for k, v in rows.items()})[0])
+                    for i in range(n_micro))
+            res["train"]["one_device_loss0"] = one_loss
+            del one
+        free()
+
+        # [mesh train reduced]: float32, the mesh against one rank of the card
+        r = MESH_REDUCED
+        rcfg = dataclasses.replace(configs.reduced(cfg), num_layers=4, compute_dtype="float32")
+        rshape = dataclasses.replace(configs.SHAPES["train_4k"], seq_len=r["seq_len"],
+                                     global_batch=r["global_batch"])
+        rdata = SyntheticLM(DataConfig(rcfg.vocab_size, r["seq_len"], r["global_batch"]))
+        rmodel = build_model(rcfg, seed=0, device=dev, train=True, mesh=mesh)
+        rb = tsteps.build_train_step(rmodel, mesh, rshape, microbatch_seqs=r["microbatch_seqs"])
+        rp = rmodel.params()
+        ro = adamw_init(rp, rb.opt_cfg)
+        for i in range(r["steps"]):
+            rp, ro, _ = rb(rp, ro, rdata.batch(i))
+        mesh_params = {n: p.full_tensor() for n, p in iter_leaves(rp)}
+        if rank == 0:
+            one = build_model(rcfg, seed=0, device=dev, train=True)
+            # the same micro-batches: micro-step i is global rows [i b, (i + 1) b)
+            step = tsteps.build_train_step(one, None, rshape, microbatch_seqs=r["global_batch"]
+                                           // rb.n_micro)
+            op = one.params()
+            oo = adamw_init(op, step.opt_cfg)
+            for i in range(r["steps"]):
+                op, oo, _ = step(op, oo, rdata.batch(i))
+            worst = 0.0
+            for n, p in iter_leaves(op):
+                top = float(p.detach().abs().max())
+                err = float((mesh_params[n] - p.detach()).abs().max())
+                worst = max(worst, err / top)
+                if err > MESH_REDUCED_TOL * top:
+                    raise AssertionError(f"[mesh train reduced] {n}: max |mesh - one rank| {err} "
+                                         f"> {MESH_REDUCED_TOL} * {top}")
+            res["reduced_worst"] = worst
+            say(f"[mesh train reduced] reduced {TRAIN_ARCH} at float32 (TF32 off), {r['steps']} "
+                f"steps on {describe(mesh)} against one rank of the card from the same seed: "
+                f"every parameter within {worst:.3e} of its leaf's largest entry (limit "
+                f"{MESH_REDUCED_TOL})")
+            del one, op, oo, step
+        del rmodel, rp, ro, rb, mesh_params
+        free()
+
+        # [mesh serve]: the sharded prefill and decode bundles
+        length = sv["prompt_len"] + sv["gen_len"]
+        smodel = build_model(cfg, seed=0, device=dev, mesh=mesh)
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        pre = tsteps.build_prefill_step(smodel, mesh, dataclasses.replace(
+            configs.SHAPES["prefill_32k"], seq_len=length, global_batch=sv["batch"]))
+        dec = tsteps.build_decode_step(smodel, mesh, dataclasses.replace(
+            configs.SHAPES["decode_32k"], seq_len=length, global_batch=sv["batch"]))
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (sv["batch"], sv["prompt_len"])).astype(np.int32)
+        cache = smodel.init_cache(sv["batch"], length)
+        (lg, cache), pre_ms = timed(lambda: pre(smodel.params(), {"tokens": prompts}, cache))
+        logits = [lg.full_tensor()[:, -1, :cfg.vocab_size].float().cpu()]
+        toks = [logits[-1].argmax(-1).to(torch.int32)]
+        dec_ms = []
+        for i in range(sv["gen_len"]):
+            pos = np.full((sv["batch"], 1), sv["prompt_len"] + i, np.int32)
+            (lg, cache), ms = timed(lambda: dec(smodel.params(), cache,
+                                                toks[-1].numpy()[:, None], pos))
+            dec_ms.append(ms)
+            logits.append(lg.full_tensor()[:, -1, :cfg.vocab_size].float().cpu())
+            toks.append(logits[-1].argmax(-1).to(torch.int32))
+        res["serve"] = {"prefill_ms": pre_ms, "decode_ms": dec_ms, "peak": peak()}
+        del smodel, cache, lg, pre, dec
+        free()
+        if rank == 0:
+            one = build_model(cfg, seed=0, device=dev)
+            cache = one.init_cache(sv["batch"], length)
+            lg, cache = one.prefill({"tokens": prompts}, cache)
+            ref = [lg[:, -1, :cfg.vocab_size].float().cpu()]
+            for i in range(sv["gen_len"]):
+                pos = np.full((sv["batch"], 1), sv["prompt_len"] + i, np.int32)
+                lg, cache = one.decode_step(toks[i].numpy()[:, None], cache, pos)
+                ref.append(lg[:, -1, :cfg.vocab_size].float().cpu())
+            worst, agree, decided = 0.0, 0, 0
+            for i, (a, b) in enumerate(zip(logits, ref)):
+                tol = MESH_SERVE_TOL * float(b.abs().max())
+                err = float((a - b).abs().max())
+                worst = max(worst, err / float(b.abs().max()))
+                if not bool(torch.isfinite(a).all()) or err > tol:
+                    raise AssertionError(f"[mesh serve] step {i}: max |mesh - one device| {err} > "
+                                         f"{tol}")
+                top2 = b.topk(2, dim=-1).values
+                clear = (top2[:, 0] - top2[:, 1]) > tol
+                same = a.argmax(-1) == b.argmax(-1)
+                if bool((clear & ~same).any()):
+                    raise AssertionError(f"[mesh serve] step {i}: a greedy token differs where "
+                                         f"the top-2 margin exceeds {tol}")
+                decided += int(clear.sum())
+                agree += int((same & clear).sum())
+            res["serve"]["worst"] = worst
+            say(f"[mesh serve] {TRAIN_ARCH} (bfloat16 trunk) on {describe(mesh)}: the sharded "
+                f"prefill ({sv['batch']} x {sv['prompt_len']}) in {pre_ms:.1f} ms and "
+                f"{sv['gen_len']} decode steps, ms {[round(x, 1) for x in dec_ms]} (CUDA events); "
+                f"last logits of every step within {worst:.3e} of the largest against the "
+                f"one-device model (limit {MESH_SERVE_TOL}); greedy tokens equal at all "
+                f"{decided} positions whose top-2 margin exceeds it ({agree} of them)")
+            del one, cache, lg
+        free()
+
+        # [pipeline]: 4 stages of MiniCPM blocks at float32, forward only
+        pcfg = dataclasses.replace(cfg, compute_dtype="float32")
+        smesh = make_mesh((pp["stages"],), ("stage",), dev.type)
+        infos = lm.stack_infos(lm._block_infos(pcfg, moe_layer=False), pp["layers"])
+
+        def stage_params(s):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(PIPE_SEED + s)
+            return materialize(infos, gen, dev)
+
+        positions = torch.arange(pp["tokens"], device=dev)[None]
+
+        @torch.no_grad()
+        def stage_fn(p, x):
+            for pl in lm._layers(p):
+                x = lm._block_apply(pcfg, pl, x, positions)[0]
+            return x
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(PIPE_SEED)
+        x = torch.randn((pp["micro"], 1, pp["tokens"], pcfg.d_model), generator=gen, device=dev)
+        s = smesh.get_local_rank(0)
+        mine = stage_params(s)
+        # a leading [S] axis of which this rank holds only its own row
+        stacked = _stage_view(mine, pp["stages"])
+        pipeline_forward(stage_fn, stacked, x[:1], smesh)  # warm
+        piped, pipe_ms = timed(lambda: pipeline_forward(stage_fn, stacked, x, smesh))
+        res["pipeline"] = {"ms": pipe_ms, "bubble": (pp["stages"] - 1) / (pp["stages"] - 1
+                                                                          + pp["micro"])}
+        del mine, stacked
+        free()
+        if rank == 0:
+            h = x
+            for st in range(pp["stages"]):
+                p = stage_params(st)
+                h = torch.stack([stage_fn(p, h[j]) for j in range(pp["micro"])])
+                del p
+            top = float(h.abs().max())
+            err = float((piped - h).abs().max())
+            if not bool(torch.isfinite(piped).all()) or err > PIPE_TOL * top:
+                raise AssertionError(f"[pipeline] max |pipeline - sequential| {err} > {PIPE_TOL} "
+                                     f"* {top}")
+            res["pipeline"]["err"] = err / top
+            say(f"[pipeline] pipeline_forward over {pp['stages']} stages of {pp['layers']} "
+                f"{TRAIN_ARCH} blocks (float32, d_model {pcfg.d_model}), M = {pp['micro']} "
+                f"micro-batches of 1 x {pp['tokens']} tokens, forward: {pipe_ms:.1f} ms (CUDA "
+                f"events, rank 0), bubble (S-1)/(S-1+M) = {res['pipeline']['bubble']:.4f}; "
+                f"within {err / top:.3e} of the sequential trunk's largest hidden value on "
+                f"one rank (limit {PIPE_TOL})")
+            del h
+        del piped
+        free()
+        if (dict(K.LAUNCHES), dict(K.LAUNCHES_BY_KERNEL)) != launches:
+            raise AssertionError(f"[mesh] rank {rank}: a TPU kernel launched: {K.LAUNCHES}")
+        res["lines"] = lines
+    finally:
+        stack.close()
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _stage_view(tree: dict, n: int) -> dict:
+    """``tree``'s leaves as ``[n, ...]`` leaves that hold only the one row
+    (an expand costs no memory): ``pipeline_forward`` takes its own
+    stage's row."""
+    from repro_torch.models.common import map_tree
+
+    return map_tree(lambda _, a: a.unsqueeze(0).expand((n,) + tuple(a.shape)), tree)
+
+
+def phase_mesh(torch, K, loss0: float, args, device: str = "cuda") -> dict:
+    """[mesh train], [mesh comm], [mesh train reduced], [mesh serve] and
+    [pipeline] over MESH_RANKS spawned ranks: one NCCL rank per card with
+    four cards or more, else gloo ranks sharing card 0.  Step 0's loss is
+    held within MESH_LOSS0_RTOL of ``loss0`` ([train]'s one-device step 0
+    on the same seed and batch) and every step's loss must be finite.
+    ``device="cpu"`` rehearses them on gloo CPU ranks (``mesh_rank``).
+    Every process started is joined or killed here."""
+    import multiprocessing as mp
+    import tempfile
+
+    d = MESH_RANKS
+    nccl = device == "cuda" and torch.cuda.device_count() >= d
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=root)
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(d)]
+    procs = [ctx.Process(target=mesh_rank, args=(r, d, args.src, os.path.join(tmp, "store"),
+                                                 outs[r], nccl, device))
+             for r in range(d)]
+    where = "on the card" if device == "cuda" else "on the CPU (rehearsal)"
+    log(f"[mesh] {d} ranks: {'nccl, one card each' if nccl else 'gloo, sharing card 0'} "
+        f"({torch.cuda.device_count()} card(s)); every tensor {where}")
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.start()
+        # a rank that fails leaves the others waiting in a collective: stop
+        # them all as soon as one fails
+        while time.perf_counter() - t0 < MESH_JOIN_SECONDS and any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    secs = time.perf_counter() - t0
+    codes = [proc.exitcode for proc in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"[mesh] ranks exited {codes} after {secs:.1f} s")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    train = ranks[0]["train"]
+    first, one = train["metrics"][0]["loss"], train["one_device_loss0"]
+    if not all(math.isfinite(m["loss"]) for r in ranks for m in r["train"]["metrics"]):
+        raise AssertionError("[mesh train] a loss is not finite")
+    # at full depth the one-device step 0 is [train]'s own (``loss0``)
+    full = loss0 is not None and train["layers"] == TRAIN_LAYERS
+    for what, want in (("one device", one), ("[train]", loss0 if full else None)):
+        if want is not None and abs(first - want) > MESH_LOSS0_RTOL * abs(want):
+            raise AssertionError(f"[mesh train] step 0's loss {first} is not within "
+                                 f"{MESH_LOSS0_RTOL} relative of {what}'s {want}")
+    log(f"[mesh train] step 0's loss {first:.4f} against the one-device model's {one:.4f} at "
+        f"{train['layers']} layers from the same weights and rows (limit {MESH_LOSS0_RTOL} "
+        f"relative; [train]'s at all {TRAIN_LAYERS}: {loss0}); backend {ranks[0]['backend']}; "
+        f"peak per rank "
+        f"{[r['train']['peak'] for r in ranks]} bytes in training (building and sharding the "
+        f"model: {[r['train']['build_peak'] for r in ranks]}), "
+        f"{[r['serve']['peak'] for r in ranks]} serving; no TPU kernel launched on any rank")
+    log(f"[mesh] phase wall {secs:.1f} s with the ranks' start-up")
+    return {"seconds": secs, "ranks": ranks, "nccl": nccl}
+
+
+# ----------------------------------------------------------------------
+# --only staging: the forms of a gloo collective on ranks sharing a card
+# ----------------------------------------------------------------------
+STAGING_MB = (5, 13, 283)  # a layer's smaller and larger FSDP shards, the embedding's
+STAGING_REPS = 3
+
+
+def staging_rank(rank: int, d: int, store: str, out: str) -> None:
+    """One of ``d`` gloo ranks on card 0, in pairs (the data groups of a
+    2x2 mesh): the all-gather and the reduce-scatter of shards of
+    ``STAGING_MB`` MB, as plain c10d collectives on the card tensors
+    (gloo stages them through pinned host memory itself;
+    ``distributed.staged``) and as a copy to pageable host memory, a
+    host collective and a copy back; ms each, mean of ``STAGING_REPS``,
+    both forms equal.  Writes JSON to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, d), rank=rank, world_size=d)
+    groups = [dist.new_group(list(range(i, i + 2))) for i in range(0, d, 2)]
+    g = groups[rank // 2]
+    res = {}
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(STAGING_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / STAGING_REPS * 1e3
+
+    try:
+        for mb in STAGING_MB:
+            x = torch.randn(mb * 2**18, device=dev)
+            full = torch.randn(2 * x.numel(), device=dev)
+
+            def gather_card():
+                o = torch.empty(2 * x.numel(), device=dev)
+                dist.all_gather_into_tensor(o, x, group=g)
+                return o
+
+            def gather_host():
+                o = torch.empty(2 * x.numel())
+                dist.all_gather_into_tensor(o, x.cpu(), group=g)
+                return o.to(dev)
+
+            def scatter_card():
+                o = torch.empty(x.numel(), device=dev)
+                dist.reduce_scatter_tensor(o, full, group=g)
+                return o
+
+            def scatter_host():
+                o = torch.empty(x.numel())
+                dist.reduce_scatter_tensor(o, full.cpu(), group=g)
+                return o.to(dev)
+
+            if not (torch.equal(gather_card(), gather_host())
+                    and torch.equal(scatter_card(), scatter_host())):
+                raise AssertionError(f"[staging] rank {rank}: the two forms differ at {mb} MB")
+            res[f"{mb}MB"] = {"all_gather_card": ms(gather_card), "all_gather_host": ms(gather_host),
+                              "reduce_scatter_card": ms(scatter_card),
+                              "reduce_scatter_host": ms(scatter_host)}
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def phase_staging() -> dict:
+    """``--only staging``: ``staging_rank`` on 4 spawned gloo ranks sharing
+    card 0; rank 0's ms by shard size.  Every process is joined or
+    killed here."""
+    import multiprocessing as mp
+    import tempfile
+
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="staging_", dir=root)
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(MESH_RANKS)]
+    procs = [ctx.Process(target=staging_rank, args=(r, MESH_RANKS, os.path.join(tmp, "store"),
+                                                    outs[r])) for r in range(MESH_RANKS)]
+    try:
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(MESH_JOIN_SECONDS)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    if any(proc.exitcode != 0 for proc in procs):
+        raise AssertionError(f"[staging] ranks exited {[proc.exitcode for proc in procs]}")
+    with open(outs[0]) as f:
+        res = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3424,6 +4001,9 @@ def main() -> int:
     ap.add_argument("--variant-path", choices=("int32", "f32"),
                     help="only time this variant's sites and run_batched on it")
     ap.add_argument("--k", type=int, default=5120, help="--variant-path's contraction depth")
+    ap.add_argument("--only", choices=("train", "mesh", "staging"),
+                    help="run only [train]'s launcher steps, only the mesh phases, or only the "
+                         "staging comparison, and print one JSON line")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
 
@@ -3449,6 +4029,22 @@ def main() -> int:
         result = phase_variant_path(torch, K, ref, protocol, planner, constructions, args)
         print(json.dumps({**result, "device": smi}))
         return 0
+    if args.only == "train":
+        from repro_torch.launch import train as launcher
+
+        _, _, steps, _, peak = train_in_process(torch, launcher, TRAIN_ARGV, "train")
+        print(json.dumps({"src": args.src, "step_ms": [m["ms"] for m in steps],
+                          "loss": [m["loss"] for m in steps], "peak": peak, "device": smi}))
+        return 0
+    if args.only == "mesh":
+        run = phase_mesh(torch, K, None, args)
+        print(json.dumps({"seconds": run["seconds"], "nccl": run["nccl"],
+                          "ranks": [{k: v for k, v in r.items() if k != "lines"}
+                                    for r in run["ranks"]], "device": smi}))
+        return 0
+    if args.only == "staging":
+        print(json.dumps({"ms": phase_staging(), "device": smi}))
+        return 0
 
     t0 = time.perf_counter()
     phase_build(K)
@@ -3471,6 +4067,7 @@ def main() -> int:
     sharded_run = phase_sharded(torch, K, ref, protocol, distributed, planner, constructions,
                                 runtime, serve, scheduler, layers, gf, args)
     train_run = phase_train(torch, K)
+    mesh_run = phase_mesh(torch, K, train_run["steps"][0]["loss"], args)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
     entries += site_entries(torch, K, ref, f32_run, "f32", args)
     entries += edge_entries(torch, K, ref, edge_run, args)
@@ -3499,7 +4096,8 @@ def main() -> int:
         f"{vlm_run['peak']} bytes; encdec peak {encdec_run['peak']} bytes; xlstm peak "
         f"{xlstm_run['peak']} bytes; zamba peak {zamba_run['peak']} bytes; sharded peak "
         f"{max(sharded_run['peaks'].values())} bytes; train peak {train_run['peak']} bytes, "
-        f"step {train_run['step_ms']:.3f} ms, phase {train_run['phase_s']:.1f} s")
+        f"step {train_run['step_ms']:.3f} ms, phase {train_run['phase_s']:.1f} s; mesh phase "
+        f"{mesh_run['seconds']:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

@@ -52,7 +52,7 @@ def main(argv=None):
     mgr = CheckpointManager(args.ckpt_dir, keep=2)
     # one micro-step of the whole batch; the MiniCPM WSD schedule
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=args.seq_len, global_batch=args.batch)
-    step = build_train_step(model, shape, lr=6e-4, schedule="wsd", total_steps=args.steps,
+    step = build_train_step(model, None, shape, lr=6e-4, schedule="wsd", total_steps=args.steps,
                             microbatch_seqs=args.batch)
 
     opt = adamw_init(params, step.opt_cfg)

@@ -205,5 +205,7 @@ def opt_state_from_reference(cfg, opt: dict, device="cpu") -> AdamWState:
 def train_state_to_reference(params: dict, opt: AdamWState) -> dict:
     """``{"params/...": array, "opt/step": array, "opt/mu/...": array,
     "opt/nu/...": array}``: the port's parameters and optimizer state as
-    host numpy arrays under the reference's ``/`` paths."""
+    host numpy arrays under the reference's ``/`` paths.  A sharded tree
+    (DTensor leaves) is gathered to its full values first, so every rank
+    of its mesh calls this."""
     return flatten({"params": params, "opt": opt._asdict()})

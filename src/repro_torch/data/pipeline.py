@@ -6,7 +6,10 @@ shard), so training is bit-reproducible across restarts and elastic
 re-shardings: after restoring a checkpoint at step k the pipeline
 resumes from batch k with no state to save.  Host sharding follows the
 (process_index, process_count) contract so multi-host launches read
-disjoint shards.
+disjoint shards.  The port's ranks on a mesh each build a step's global
+batch as the reference's single controller does (process 0 of 1), and
+``launch.steps``' bundles place each data rank's slice of it, the
+batch sliced by ``batch_pspecs``.
 """
 from __future__ import annotations
 

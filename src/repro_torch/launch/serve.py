@@ -16,10 +16,19 @@ a request against it, and the reported latencies are the engine's
 simulated protocol time.
 
 ``--device`` picks the device (default: the GPU; ``cpu`` on request).
-The port runs on one device: ``--mesh`` takes ``elastic`` or ``1x1``,
-both meaning that device.  A ``(data, model)`` mesh of several devices
-shards the model (``distributed/sharding.py``) and waits for ROADMAP
-13b.  The ported families: dense; moe (DBRX's GQA trunk,
+Run as one process, the port serves on that one device (``--mesh``
+``elastic`` or ``1x1``).  Under ``torchrun`` every process is one rank
+of a ``(data, model)`` mesh (``--mesh DxM`` or ``elastic``; ``gloo``
+ranks on the CPU with ``--device cpu``, else one ``nccl`` rank per
+card), the model is sharded as it is drawn, and the prefill and each
+decode step run as ``launch.steps``'s sharded bundles.  (The reference
+builds its mesh but runs an unsharded ``jit``; a torch rank holds only
+its shards, so the port runs the bundles: ROADMAP C14.)  With
+``--private-head`` on a mesh the trunk's ``hidden_step`` runs under the
+decode bundle's rules, and every rank gathers the head and runs the
+same ``ServingEngine`` from the same seed, so the tokens and the summary
+are the one-device run's.  Rank 0 prints.  The dense and moe families
+run on a mesh; the others raise there (ROADMAP 13c).  The ported families: dense; moe (DBRX's GQA trunk,
 DeepSeek-V2's MLA trunk with its dense first layer); vlm (InternVL2's
 decoder; the launcher, as the reference's, passes no patches); and
 encdec.  An encoder-decoder's prefill encodes ``--prompt-len`` frames
@@ -36,14 +45,17 @@ recurrent families have no split lm head, and ``--private-head`` refuses
 them after the prefill, as the reference's.
 """
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..configs import get_config, reduced as reduce_cfg
+from ..configs import SHAPES, get_config, reduced as reduce_cfg
 from ..core.protocol import resolve_device
 from ..models import build_model
+from .mesh import describe, distributed_launch, init_from_env, mesh_from_flag
 
 ONE_DEVICE_MESHES = ("elastic", "1x1")
 
@@ -83,15 +95,29 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="the device (default: the GPU)")
     args = ap.parse_args(argv)
 
-    one_device_mesh(args.mesh)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    device = resolve_device(args.device)
-    model = build_model(cfg, seed=0, device=device)
-    print(f"serving {args.arch} on {device} (one device)")
-
     max_len = args.prompt_len + args.gen_len
+    mesh = None
+    if distributed_launch():
+        from .steps import SHARDED_FAMILIES
+
+        if cfg.family not in SHARDED_FAMILIES:
+            raise NotImplementedError(f"{args.arch}: the {cfg.family} family on a mesh is ROADMAP 13c")
+        device = init_from_env(args.device)
+        mesh = mesh_from_flag(args.mesh, device.type)
+        where = describe(mesh)
+    else:
+        one_device_mesh(args.mesh)
+        device = resolve_device(args.device)
+        where = f"{device} (one device)"
+    say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
+    model = (build_model(cfg, seed=0, device=device) if mesh is None
+             else build_model(cfg, seed=0, device=device, mesh=mesh))
+    say(f"serving {args.arch} on {where}")
+    steps_of = _Steps(model, mesh, args.batch, max_len)
+
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     cache = model.init_cache(args.batch, max_len)
@@ -101,35 +127,78 @@ def main(argv=None):
         frames = rng.normal(size=(args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
         batch = {"frames": frames, "tokens": prompts[:, :1]}
     t0 = time.perf_counter()
-    logits, cache = model.prefill(batch, cache)
+    logits, cache = steps_of.prefill(batch, cache)
     _sync(device)
     t_pre = time.perf_counter() - t0
 
     tok = argmax_last(logits, cfg.vocab_size)
     t0 = time.perf_counter()
     if args.private_head:
-        steps, report, worst = _decode_private_head(args, cfg, model, cache, tok)
+        steps, report, worst = _decode_private_head(args, cfg, model, cache, tok, steps_of)
     else:
         steps = 0
         for i in range(args.gen_len - 1):
             pos = np.full((args.batch, 1), args.prompt_len + i, np.int32)
-            logits, cache = model.decode_step(tok[:, None], cache, pos)
+            logits, cache = steps_of.decode_step(tok[:, None], cache, pos)
             tok = argmax_last(logits, cfg.vocab_size)
             steps += 1
         _sync(device)
     dt = time.perf_counter() - t0
-    print(f"prefill: {t_pre * 1e3:.1f} ms for {args.prompt_len} x {args.batch} tokens")
-    print(f"decode : {dt / max(steps, 1) * 1e3:.2f} ms/step (batch {args.batch})")
+    say(f"prefill: {t_pre * 1e3:.1f} ms for {args.prompt_len} x {args.batch} tokens")
+    say(f"decode : {dt / max(steps, 1) * 1e3:.2f} ms/step (batch {args.batch})")
     if args.private_head:
         s = report.summary()
-        print(
+        say(
             f"private head: {s['replays']} protocol replays over {steps} steps "
             f"on {args.workers} workers, sim latency p50 {s['p50_latency']:.3f}s "
             f"p95 {s['p95_latency']:.3f}s, max |logit err| {worst:.3e}"
         )
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
-def _decode_private_head(args, cfg, model, cache, tok):
+class _Steps:
+    """The model's serving calls: its own methods on one device; on a
+    mesh the sharded prefill, decode and hidden-step bundles, whose
+    outputs come back whole (``full_tensor``) as the reference's
+    controller gets them."""
+
+    def __init__(self, model, mesh, batch: int, max_len: int):
+        self.model, self.mesh = model, mesh
+        if mesh is None:
+            return
+        from .steps import build_decode_step, build_prefill_step
+
+        dec = dataclasses.replace(SHAPES["decode_32k"], seq_len=max_len, global_batch=batch)
+        pre = dataclasses.replace(SHAPES["prefill_32k"], seq_len=max_len, global_batch=batch)
+        self._prefill = build_prefill_step(model, mesh, pre)
+        self._decode = build_decode_step(model, mesh, dec)
+        self._hidden = build_decode_step(model, mesh, dec, hidden=True)
+
+    def prefill(self, batch, cache):
+        if self.mesh is None:
+            return self.model.prefill(batch, cache)
+        logits, cache = self._prefill(self.model.params(), batch, cache)
+        return logits.full_tensor(), cache
+
+    def decode_step(self, tokens, cache, positions):
+        if self.mesh is None:
+            return self.model.decode_step(tokens, cache, positions)
+        logits, cache = self._decode(self.model.params(), cache, tokens, positions)
+        return logits.full_tensor(), cache
+
+    def hidden_step(self, tokens, cache, positions):
+        if self.mesh is None:
+            return self.model.hidden_step(tokens, cache, positions)
+        hidden, cache = self._hidden(self.model.params(), cache, tokens, positions)
+        return hidden.full_tensor(), cache
+
+    def head_matrix(self) -> torch.Tensor:
+        head = self.model.head_matrix()
+        return head.full_tensor() if self.mesh is not None else head
+
+
+def _decode_private_head(args, cfg, model, cache, tok, steps_of=None):
     """Greedy decode with every step's lm-head matmul served by the
     CMPC engine on the model's device.  Rows / head columns / the
     contraction dim are zero-padded up to the construction's
@@ -146,7 +215,8 @@ def _decode_private_head(args, cfg, model, cache, tok):
             "--private-head needs a decoder family with a split lm head; "
             f"family {cfg.family!r} does not expose one"
         )
-    w = model.head_matrix().cpu().numpy().astype(np.float64)  # [d_model, vocab]
+    steps_of = steps_of or _Steps(model, None, args.batch, 0)
+    w = steps_of.head_matrix().cpu().numpy().astype(np.float64)  # [d_model, vocab]
     plan_cfg = PlanConfig()
     k, vocab = w.shape
     pad_k = (-k) % plan_cfg.s
@@ -162,7 +232,7 @@ def _decode_private_head(args, cfg, model, cache, tok):
     arrival, worst, steps = 0.0, 0.0, 0
     for i in range(args.gen_len - 1):
         pos = np.full((args.batch, 1), args.prompt_len + i, np.int32)
-        hidden, cache = model.hidden_step(tok[:, None], cache, pos)
+        hidden, cache = steps_of.hidden_step(tok[:, None], cache, pos)
         x = hidden[:, -1, :].float().cpu().numpy().astype(np.float64)
         # The next head matmul cannot be requested before the previous
         # token is known: arrivals chain on completions.

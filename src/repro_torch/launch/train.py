@@ -14,14 +14,30 @@ checkpoint under ``--ckpt-dir`` (in the reference's layout: each
 package resumes from the other's).
 
 ``--device`` picks the device (default: the GPU; ``cpu`` on request).
-The port trains on one device: ``--mesh`` takes ``elastic`` or ``1x1``,
-both meaning that device.  A ``(data, model)`` mesh of several devices
-shards the model and its optimizer state (FSDP + TP,
-``distributed/sharding.py``) and waits for ROADMAP 13b.
+Run as one process, the port trains on that one device (``--mesh``
+``elastic`` or ``1x1``).  Under ``torchrun`` every process is one rank
+of a ``(data, model)`` mesh (``--mesh DxM`` or ``elastic`` over the
+world size; ``gloo`` ranks on the CPU with ``--device cpu``, else one
+``nccl`` rank per card):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch minicpm-2b \
+        --reduced --mesh 2x2 --device cpu --steps 4
+
+The model is drawn leaf by leaf and sharded as it is drawn (FSDP + TP
+by ``distributed/sharding.py``), trained by ``launch.steps``'s sharded
+bundle, and checkpointed whole (rank 0 writes; a checkpoint of any mesh
+or of one device resumes on any other).  Every rank builds each step's
+global batch, process 0 of 1 of ``SyntheticLM``'s contract as the
+reference's single controller does, and the bundle places its own data
+shard.  Rank 0 prints the reference's lines.  The families with a
+tested DTensor path are dense and moe; the others raise on a mesh
+(ROADMAP 13c).
 """
 import argparse
 import dataclasses
 import time
+
+import torch.distributed as dist
 
 from ..checkpoint.manager import CheckpointManager
 from ..configs import SHAPES, get_config, reduced as reduce_cfg
@@ -29,15 +45,18 @@ from ..core.protocol import resolve_device
 from ..data.pipeline import DataConfig, SyntheticLM
 from ..models import build_model
 from ..train.optimizer import adamw_init
+from .mesh import describe, distributed_launch, init_from_env, mesh_from_flag
 from .serve import ONE_DEVICE_MESHES, one_device_mesh
-from .steps import build_train_step, restore_train_state
+from .steps import SHARDED_FAMILIES, build_train_step, restore_train_state
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--mesh", default="elastic", help=f"one device: {' or '.join(ONE_DEVICE_MESHES)}")
+    ap.add_argument("--mesh", default="elastic",
+                    help=f"'elastic' or DxM like 2x2 under torchrun; one process: "
+                         f"{' or '.join(ONE_DEVICE_MESHES)}")
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -50,17 +69,29 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="the device (default: the GPU)")
     args = ap.parse_args(argv)
 
-    one_device_mesh(args.mesh)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     schedule = args.schedule or ("wsd" if args.arch == "minicpm-2b" else "cosine")
-    device = resolve_device(args.device)
-    model = build_model(cfg, seed=0, device=device, train=True)
-    print(f"training {args.arch} on {device} (one device); schedule={schedule}")
+    mesh = None
+    if distributed_launch():
+        if cfg.family not in SHARDED_FAMILIES:
+            raise NotImplementedError(f"{args.arch}: the {cfg.family} family on a mesh is ROADMAP 13c")
+        device = init_from_env(args.device)
+        mesh = mesh_from_flag(args.mesh, device.type)
+        where = describe(mesh)
+    else:
+        one_device_mesh(args.mesh)
+        device = resolve_device(args.device)
+        where = f"{device} (one device)"
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    model = (build_model(cfg, seed=0, device=device, train=True) if mesh is None
+             else build_model(cfg, seed=0, device=device, train=True, mesh=mesh))
+    say(f"training {args.arch} on {where}; schedule={schedule}")
 
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=args.seq_len, global_batch=args.global_batch)
-    step_fn = build_train_step(model, shape, lr=args.lr, schedule=schedule,
+    step_fn = build_train_step(model, mesh, shape, lr=args.lr, schedule=schedule,
                                total_steps=args.steps, microbatch_seqs=args.microbatch_seqs)
     params = model.params()
     opt = adamw_init(params, step_fn.opt_cfg)
@@ -71,7 +102,7 @@ def main(argv=None):
         mgr = CheckpointManager(args.ckpt_dir, keep=3)
         if mgr.latest_step() is not None:
             start, opt = restore_train_state(mgr, params, opt)
-            print(f"auto-resumed from step {start}")
+            say(f"auto-resumed from step {start}")
 
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq_len, args.global_batch))
     t0 = time.time()
@@ -81,7 +112,7 @@ def main(argv=None):
         if i % args.log_every == 0 or i == args.steps - 1:
             dt = time.time() - t0
             done = i - start + 1
-            print(
+            say(
                 f"step {i:5d} loss {float(metrics['loss']):.4f} "
                 f"lr {float(metrics['lr']):.2e} "
                 f"gnorm {float(metrics['grad_norm']):.2f} "
@@ -91,7 +122,9 @@ def main(argv=None):
             mgr.save(i + 1, {"params": params, "opt": opt._asdict()})
     if mgr:
         mgr.save(args.steps, {"params": params, "opt": opt._asdict()})
-    print("done")
+    say("done")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

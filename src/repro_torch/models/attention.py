@@ -10,9 +10,10 @@ fixed-length buffer; ``gqa_attention`` and ``mla_attention`` write the
 new tokens into the buffers they are given, in place, and return them
 (the reference returns new arrays; ``lm._trunk`` and ``lm.decode_stack``
 copy the caches once per step, so a caller's cache is left as it was).
-
-The reference's ``constrain`` calls are dropped: without sharding rules
-they do nothing, and one device has none.
+q, k and v take the reference's ``constrain`` (heads over ``model``).
+On DTensors the attention runs on each rank's shards, head-parallel and,
+for a cache sharded along its sequence, sequence-parallel
+(``_sharded_sdpa``).
 """
 from __future__ import annotations
 
@@ -20,8 +21,11 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain
 from .common import ParamInfo, ShapeDtype, apply_rope
 
 _NEG = -1e30  # the reference's fill for masked scores
@@ -50,7 +54,22 @@ def gqa_params(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamInfo]:
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, t, _ = x.shape
-    return x.reshape(b, t, n, -1)
+    return _unshard(x, 2, lambda size: n % size != 0).reshape(b, t, n, -1)
+
+
+def _unshard(x: torch.Tensor, dim: int, when=lambda size: True) -> torch.Tensor:
+    """``x`` with ``dim`` gathered over each mesh dim that shards it (and
+    of a size for which ``when`` holds); a plain tensor as it is.  The
+    heads split of a projection whose heads the model axis does not
+    divide (GSPMD replicates them), and the keys and values of a cache
+    sharded along its sequence, which the chunked attention reads whole
+    (DTensor has no rule for reshaping a sharded sequence into chunks)."""
+    if not isinstance(x, DTensor):
+        return x
+    sizes = x.device_mesh.mesh.shape
+    want = tuple(Replicate() if p.is_shard(dim) and when(sizes[i]) else p
+                 for i, p in enumerate(x.placements))
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
 
 
 def _sdpa_naive(
@@ -103,9 +122,92 @@ def _sdpa_chunked(
     ``acc / max(l, 1e-30)`` at the end.  A key is masked past its
     query's position (``q_positions``; causal), at or past ``kv_limit``,
     and where ``kv_valid`` is false.  The reference's two ``scan``s are
-    loops over the same chunks."""
-    b, tq, h, hd = q.shape
+    loops over the same chunks.
+
+    On DTensors each rank attends on its local shards
+    (``_sharded_sdpa``)."""
+    kvh = k.shape[2]
+    q = _unshard(q, 2, lambda size: kvh % size != 0)  # heads grouped per KV head
+    if isinstance(q, DTensor):
+        return _sharded_sdpa(q, k, v, scale, q_positions, kv_limit, kv_valid, q_chunk, k_chunk)
+    return _sdpa_local(q, k, v, scale, q_positions, kv_limit, kv_valid, q_chunk, k_chunk)
+
+
+def _sharded_sdpa(q, k, v, scale, q_positions, kv_limit, kv_valid, q_chunk, k_chunk):
+    """``_sdpa_local`` on each rank's shards.  Head-parallel over the mesh
+    dims that split q [B, Tq, H, hd] over its batch (dim 0) or heads
+    (dim 2), with k and v split the same way (or, with one KV head, MLA,
+    not over the heads): each rank attends over its own rows and heads.
+    Sequence-parallel over the mesh dims that split k and v along their
+    sequence (long context; KV heads the model axis does not divide): q
+    is whole there, each rank attends over its own keys, and the partial
+    softmaxes meet in three all-reduces (the running max, then the
+    rescaled sums and accumulators), as the online softmax meets its
+    next chunk.  DTensor's einsum and reshape rules cannot split a
+    sharded head or sequence dim on every torch, so no rank gathers
+    another's keys."""
+    mesh = q.device_mesh
+
+    def dims(t):
+        return tuple(p.dim if p.is_shard() else ("partial" if p.is_partial() else None)
+                     for p in t.placements)
+
+    kd, vd = dims(k), dims(v)
+    seq = [i for i in range(mesh.ndim) if kd[i] == 1]
+    q = _unshard(q, 1, lambda size: True) if seq else q
+    qd = dims(q)
+    for i in range(mesh.ndim):
+        ok = kd[i] == vd[i] and qd[i] in (None, 0, 2) and (
+            kd[i] == qd[i] or (qd[i] == 2 and kd[i] is None and k.shape[2] == 1)
+            or (kd[i] == 1 and qd[i] is None))
+        if not ok:
+            raise NotImplementedError(f"sharded attention: q on {q.placements}, k on "
+                                      f"{k.placements}, v on {v.placements}")
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    n = k.to_local().shape[1]
+    lo = 0  # this rank's block of the keys, the outer mesh dim first
+    for i in seq:
+        lo = lo * mesh.mesh.shape[i] + mesh.get_local_rank(i)
+    lo *= n
+    q_positions, kv_limit = whole(q_positions), whole(kv_limit)
+    if kv_valid is not None:
+        kv_valid = whole(kv_valid)
+        if kv_valid.shape[0] > 1:
+            rows = [Shard(0) if d == 0 else Replicate() for d in qd]
+            kv_valid = distribute_tensor(kv_valid, mesh, rows, src_data_rank=None).to_local()
+        kv_valid = kv_valid[:, lo:lo + n]
+    args = (q.to_local(), k.to_local(), v.to_local(), scale, q_positions, kv_limit, kv_valid,
+            q_chunk, k_chunk)
+    if not seq:
+        out = _sdpa_local(*args)
+    else:
+        acc, m, l = _sdpa_local(*args, k_offset=lo, stats=True)
+        top = m
+        for i in seq:
+            top = funcol.all_reduce(top, "max", (mesh, i))
+        w = torch.exp(m - top)
+        acc, l = acc * w[..., None], l * w
+        for i in seq:
+            acc = funcol.all_reduce(acc, "sum", (mesh, i))
+            l = funcol.all_reduce(l, "sum", (mesh, i))
+        b, tq, h = acc.shape[:3]
+        out = (acc / torch.clamp_min(l, 1e-30)[..., None]).reshape(b, tq, -1).to(q.dtype)
+    shape = torch.Size((q.shape[0], q.shape[1], q.shape[2] * v.shape[-1]))
+    return DTensor.from_local(out, mesh, [Shard(d) if d is not None else Replicate() for d in qd],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _sdpa_local(q, k, v, scale, q_positions, kv_limit, kv_valid, q_chunk, k_chunk,
+                k_offset: int = 0, stats: bool = False):
+    """The chunked attention on plain tensors; the keys are positions
+    ``k_offset`` on.  ``stats``: the float32 accumulator [B, Tq, H, hd_v],
+    running max and sum [B, Tq, H] before the final division."""
     s, kvh = k.shape[1], k.shape[2]
+    b, tq, h, hd = q.shape
     g = h // kvh
     hv = v.shape[-1]
     qc = _divisor_chunk(tq, q_chunk)
@@ -119,7 +221,7 @@ def _sdpa_chunked(
     qpos = None if q_positions is None else q_positions.reshape(nq, qc)
     kvv = None if kv_valid is None else kv_valid.reshape(-1, nk, kc)
 
-    outs = []
+    outs, ms, ls = [], [], []
     for iq in range(nq):
         qb = qg[:, iq]  # [b, qc, kv, g, hd]
         m = torch.full((b, kvh, g, qc), _NEG, dtype=torch.float32, device=dev)
@@ -129,7 +231,7 @@ def _sdpa_chunked(
             kb = kg[:, ik]  # [b, kc, kv, hd]
             vb = vg[:, ik]
             sc = _dot_f32("bqkgd,bskd->bkgqs", qb, kb) * scale  # [b, kv, g, qc, kc]
-            kpos = ik * kc + torch.arange(kc, device=dev)
+            kpos = k_offset + ik * kc + torch.arange(kc, device=dev)
             mask = None
             if qpos is not None:
                 mask = kpos[None, :] <= qpos[iq][:, None]  # [qc, kc]
@@ -145,10 +247,46 @@ def _sdpa_chunked(
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + _dot_f32("bkgqs,bskd->bkgqd", p.to(vb.dtype), vb)
             m = m_new
+        if stats:
+            outs.append(acc.permute(0, 3, 1, 2, 4))  # [b, qc, kv, g, hv]
+            ms.append(m.permute(0, 3, 1, 2))
+            ls.append(l.permute(0, 3, 1, 2))
+            continue
         out = acc / torch.clamp_min(l, 1e-30)[..., None]  # [b, kv, g, qc, hv]
         outs.append(out.permute(0, 3, 1, 2, 4))  # [b, qc, kv, g, hv]
+    if stats:
+        return (torch.stack(outs, dim=1).reshape(b, tq, h, hv),
+                torch.stack(ms, dim=1).reshape(b, tq, h), torch.stack(ls, dim=1).reshape(b, tq, h))
     out = torch.stack(outs, dim=1).reshape(b, tq, h * hv)
     return out.to(q.dtype)
+
+
+def _cache_write(buf: torch.Tensor, slots: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``buf.index_copy_(1, slots, new)`` in ``buf``'s dtype, in place.  A
+    DTensor buffer is written shard by shard: each rank copies the slots
+    that fall in its own range of the sequence (all of them, unless the
+    buffer is sharded along it: long context, or KV heads the model axis
+    does not divide) into its local rows (DTensor has no in-place rule for
+    ``index_copy_`` on every torch, nor for a write into a sharded dim)."""
+    new = new.to(buf.dtype)
+    if not isinstance(buf, DTensor):
+        return buf.index_copy_(1, slots, new)
+    mesh = buf.device_mesh
+    whole = tuple(Replicate() if p.is_shard(1) else p for p in buf.placements)
+    if tuple(new.placements) != whole:
+        new = new.redistribute(mesh, whole)
+    if isinstance(slots, DTensor):
+        slots = slots.full_tensor()
+    local = buf.to_local()
+    n = local.shape[1]
+    rank = 0  # this rank's block along the sequence, the outer mesh dim first
+    for i, p in enumerate(buf.placements):
+        if p.is_shard(1):
+            rank = rank * mesh.mesh.shape[i] + mesh.get_local_rank(i)
+    lo = rank * n
+    mine = (slots >= lo) & (slots < lo + n)
+    local.index_copy_(1, slots[mine] - lo, new.to_local()[:, mine])
+    return buf
 
 
 def _and(mask: Optional[torch.Tensor], more: torch.Tensor) -> torch.Tensor:
@@ -191,7 +329,9 @@ def gqa_attention(
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q, k, v = _split_heads(q, h), _split_heads(k, kv), _split_heads(v, kv)
+    q = constrain(_split_heads(q, h), ("batch", "seq", "heads", None))
+    k = constrain(_split_heads(k, kv), ("batch", "seq", "heads", None))
+    v = constrain(_split_heads(v, kv), ("batch", "seq", "heads", None))
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -223,8 +363,8 @@ def gqa_attention(
         k = apply_rope(k, positions, cfg.rope_theta)
     tq = q.shape[1]
     slots = idx.long() + torch.arange(tq, device=x.device)
-    ck = cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))
-    cv = cache["v"].index_copy_(1, slots, v.to(cache["v"].dtype))
+    ck = _cache_write(cache["k"], slots, k)
+    cv = _cache_write(cache["v"], slots, v)
     out = _sdpa_chunked(q, ck.to(dt), cv.to(dt), scale, q_positions=slots)
     return out @ p["wo"].to(dt), {"k": ck, "v": cv, "idx": idx.add_(tq)}
 
@@ -282,8 +422,8 @@ def mla_attention(
     if cache is not None:
         idx = cache["idx"]
         slots = idx.long() + torch.arange(t, device=x.device)
-        cc = cache["c"].index_copy_(1, slots, c.to(cache["c"].dtype))
-        ck = cache["k_rope"].index_copy_(1, slots, k_rope.to(cache["k_rope"].dtype))
+        cc = _cache_write(cache["c"], slots, c)
+        ck = _cache_write(cache["k_rope"], slots, k_rope)
         new_cache = {"c": cc, "k_rope": ck, "idx": idx.add_(t)}
         c, k_rope = cc.to(dt), ck.to(dt)
         q_positions = slots

@@ -3,10 +3,9 @@
 The counterpart of ``repro.models.common``.  Parameters are declared
 as ``ParamInfo`` leaves (shape + logical axes + initializer + dtype) in
 nested dicts; ``materialize`` turns such a tree into tensors and
-``abstract`` into ``ShapeDtype`` leaves.  The logical axes are kept so
-the declarations read as the reference's, though one device shards
-nothing: ``partition_specs`` waits for the model's sharding (ROADMAP
-13b).
+``abstract`` into ``ShapeDtype`` leaves.  The logical axes map to mesh
+axes through ``partition_specs`` (and ``distributed.sharding``'s
+``param_pspecs``).
 
 ``remat_wrap`` and the cross-entropy losses serve training: the
 policies ``full`` and ``dots`` are ``torch.utils.checkpoint`` (all of a
@@ -21,7 +20,10 @@ import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import checkpoint as _ckpt
+
+from ..distributed.sharding import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,13 +68,16 @@ def map_tree(fn, tree: ParamTree, prefix: str = "") -> ParamTree:
     }
 
 
-def materialize(tree: ParamTree, generator: torch.Generator, device=None) -> ParamTree:
+def materialize(tree: ParamTree, generator: torch.Generator, device=None,
+                then: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> ParamTree:
     """Tensors for a ParamInfo tree, drawn from ``generator`` leaf by leaf
     in sorted key order, on ``device`` (the generator's device by
     default), in each leaf's dtype.  The reference's rules: a fan-in
     scaled normal, ``embed`` x 0.02, ``small`` x 0.006, zeros and ones.
     The numbers differ from ``jax.random``'s; carry the reference's
-    weights with ``convert`` to compare the two packages."""
+    weights with ``convert`` to compare the two packages.  ``then(name,
+    tensor)``, where given, replaces each leaf as soon as it is drawn (a
+    shard of it), so the whole tree is never held at once."""
     device = generator.device if device is None else torch.device(device)
 
     def leaf(_, info: ParamInfo) -> torch.Tensor:
@@ -88,12 +93,20 @@ def materialize(tree: ParamTree, generator: torch.Generator, device=None) -> Par
         fan_in = info.shape[-2] if len(info.shape) >= 2 else info.shape[-1]
         return arr.div_(math.sqrt(max(fan_in, 1)))
 
-    return map_tree(leaf, tree)
+    return map_tree(leaf if then is None else (lambda name, i: then(name, leaf(name, i))), tree)
 
 
 def abstract(tree: ParamTree) -> ParamTree:
     """The ``ShapeDtype`` of every ParamInfo leaf (no storage)."""
     return map_tree(lambda _, i: ShapeDtype(tuple(i.shape), i.dtype), tree)
+
+
+def partition_specs(tree: ParamTree, rules: Dict[str, Any]) -> ParamTree:
+    """Map logical axes to mesh axes: each ParamInfo leaf's spec, a tuple
+    with one entry per dim.  ``rules[axis]`` may be a mesh axis name, a
+    tuple of mesh axes, or None."""
+    return map_tree(lambda _, info: tuple(rules.get(a) if a is not None else None
+                                          for a in info.axes), tree)
 
 
 def count_params(tree: ParamTree) -> int:
@@ -170,12 +183,27 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
     return wrapped
 
 
+def _sharded_lse_ll(logits, labels):
+    """(logsumexp, the label's logit) of vocab-sharded logits [..., V]:
+    the vocab-parallel cross-entropy, each from local partial sums that
+    meet in one reduction (a gather by label has no sharding rule over a
+    sharded vocab)."""
+    m = constrain(logits.detach().amax(-1, keepdim=True), ("batch", None))
+    lse = constrain((logits - m).exp().sum(-1), ("batch",)).log() + m[..., 0]
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    ll = constrain(torch.where(cols == labels[..., None], logits, 0.0).sum(-1), ("batch",))
+    return lse, ll
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, z_weight: float = 0.0) -> torch.Tensor:
     """Token cross-entropy with optional z-loss; logits [..., V], in
     float32."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        lse, ll = _sharded_lse_ll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - ll
     if z_weight:
         loss = loss + z_weight * lse.square()
@@ -211,7 +239,8 @@ def chunked_softmax_xent(
         col_ok = (torch.arange(vpad, device=x.device) < n_vocab)[None, :]
 
     def body(xs, ls, head):
-        logits = (xs @ head.to(xs.dtype)).float() * logit_scale
+        xs = constrain(xs, ("batch", None))
+        logits = constrain((xs @ head.to(xs.dtype)).float() * logit_scale, ("batch", "vocab"))
         if col_ok is not None:
             logits = torch.where(col_ok, logits, -1e30)
         per = softmax_xent(logits, ls.clamp_min(0))
@@ -219,10 +248,25 @@ def chunked_softmax_xent(
         return (per * mask).sum(), mask.sum()
 
     body = remat_wrap(body, "full")
-    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = torch.zeros((), dtype=torch.float32, device=x.device)
-    for xs, ls in zip(xf.split(chunk), lf.split(chunk)):
+    loss_sum = count = None
+    # one chunk is not split (a split of a batch-sharded DTensor gathers it)
+    chunks = zip(xf.split(chunk), lf.split(chunk)) if xf.shape[0] > chunk else [(xf, lf)]
+    for xs, ls in chunks:
         s, c = body(xs, ls, head)
-        loss_sum = loss_sum + s
-        count = count + c
+        loss_sum = s if loss_sum is None else loss_sum + s
+        count = c if count is None else count + c
+    if isinstance(loss_sum, DTensor):
+        loss_sum, count = _reduced_together(loss_sum, count)
     return loss_sum / count.clamp_min(1.0)
+
+
+def _reduced_together(a: DTensor, b: DTensor):
+    """Two scalar DTensors (pending sums over the batch shards) reduced in
+    one collective: the same loss and count on every rank."""
+    mesh, pls = a.device_mesh, tuple(a.placements)
+    if tuple(b.placements) != pls:
+        b = b.redistribute(mesh, pls)
+    both = DTensor.from_local(torch.stack([a.to_local(), b.to_local()]), mesh, pls,
+                              run_check=False)
+    both = both.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return both[0], both[1]

@@ -18,16 +18,20 @@ Deliberate differences, each giving the reference's numbers:
   sums them in a fixed order (``_combine``), so the result does not
   depend on the order in which a device's atomics land.
 
-The reference's ``constrain`` calls and ``expert_tp`` (both sharding
-only) have no effect on one device.
+The reference's ``constrain`` calls sit at its sites: the experts over
+``model`` (expert parallelism), or under ``expert_tp`` the FFN hidden
+over ``model`` with the dispatch kept shard-local.  Without sharding
+rules they do nothing.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain
 from .common import ParamInfo
 
 
@@ -127,12 +131,40 @@ def _combine(pairs: torch.Tensor, order: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value as a plain tensor (the expert ids, for the
+    global counts: DTensor has no ``bincount`` rule); a tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (differentiable); a tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(local: torch.Tensor, ref: torch.Tensor, shape) -> torch.Tensor:
+    """``local`` as a DTensor of global ``shape`` laid out as ``ref`` (its
+    groups over the data axes, whole on each rank of the others); plain
+    when ``ref`` is plain."""
+    if not isinstance(ref, DTensor):
+        return local
+    return DTensor.from_local(local, ref.device_mesh, ref.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def moe_ffn(
     p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, T, d].  Returns (out, aux): aux is the Switch load-balance
     term, float32, over all tokens.  Pairs past an expert's capacity in
-    their group contribute nothing, as in the reference."""
+    their group contribute nothing, as in the reference.
+
+    On DTensors the dispatch and the combine are group-local: each rank
+    sorts, ranks and places the pairs of its own groups (the group dim
+    over the data axes, ``xf``'s layout) on its local shards, and only
+    the expert buffer meets the experts' layout (DTensor has no rules
+    for the integer sort-and-scatter)."""
     m = cfg.moe
     dt = x.dtype
     b, t, d = x.shape
@@ -140,30 +172,42 @@ def moe_ffn(
     e, k = m.num_experts, m.num_experts_per_tok
     g, ng, cap = dispatch_shape(cfg, n)
 
-    xf = x.reshape(g, ng, d)
+    xf = constrain(x.reshape(g, ng, d), ("batch", None, None))
     logits = (xf @ p["router"].to(dt)).float()  # [g, ng, e]
     probs, gates, eidx = route(logits, k)
 
     # load-balance aux loss (Switch-style, global statistics)
     me = probs.mean((0, 1))
-    ce = torch.bincount(eidx.reshape(-1), minlength=e).float() / (n * k)
+    ce = torch.bincount(_whole(eidx).reshape(-1), minlength=e).float() / (n * k)
     aux = m.router_aux_weight * e * torch.sum(me * ce)
 
+    xl, gates, eidx = _local(xf), _local(gates), _local(eidx)
+    gl = xl.shape[0]
     order, token_of, keep, slot_e, slot_c = dispatch(eidx, e, cap)
-    gi = torch.arange(g, device=x.device)[:, None]
+    gi = torch.arange(gl, device=x.device)[:, None]
     # kept pairs fill distinct slots; dropped ones go to slot e * cap,
     # which is cut off: the reference adds their zero contribution
-    buf = torch.zeros((g, e * cap + 1, d), dtype=dt, device=x.device)
-    buf[gi, torch.where(keep, slot_e * cap + slot_c, e * cap)] = xf[gi, token_of]
-    buf = buf[:, : e * cap].reshape(g, e, cap, d)
+    buf = torch.zeros((gl, e * cap + 1, d), dtype=dt, device=x.device)
+    buf[gi, torch.where(keep, slot_e * cap + slot_c, e * cap)] = xl[gi, token_of]
+    e_ax = None if m.expert_tp else "experts"
+    buf = _like(buf[:, : e * cap].reshape(gl, e, cap, d), xf, (g, e, cap, d))
+    buf = constrain(buf, ("batch", e_ax, None, None))
 
+    # expert compute: expert parallel (experts over "model") or expert-TP
+    # (FFN hidden over "model"; the dispatch stays shard-local)
     hidden = torch.nn.functional.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt)))
     hidden = hidden * torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
-    out_buf = torch.einsum("gecf,efd->gecd", hidden, p["w_down"].to(dt))
+    if m.expert_tp:
+        hidden = constrain(hidden, ("batch", None, None, "heads"))
+    out_buf = constrain(torch.einsum("gecf,efd->gecd", hidden, p["w_down"].to(dt)),
+                        ("batch", e_ax, None, None))
+    # the combine reads every expert of its groups: experts gathered
+    # (a no-op under expert-TP, whose buffer is whole on each rank)
+    out_buf = _local(constrain(out_buf, ("batch", None, None, None)))
 
-    pair_gate = torch.gather(gates.reshape(g, ng * k), -1, order).to(dt)
+    pair_gate = torch.gather(gates.reshape(gl, ng * k), -1, order).to(dt)
     gated = out_buf[gi, slot_e, slot_c] * torch.where(keep, pair_gate, 0.0)[..., None]
-    out = _combine(gated, order, k)
+    out = constrain(_like(_combine(gated, order, k), xf, (g, ng, d)), ("batch", None, None))
 
     if "shared" in p:
         out = out + mlp(p["shared"], xf)

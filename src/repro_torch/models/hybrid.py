@@ -15,8 +15,8 @@ added to the residual stream beside the attention output, not to q.
 Both forwards return (logits | hidden, new caches): the reference's
 third value is a zero auxiliary loss.  A decode step builds new caches
 and leaves the caller's as they were.  The reference's ``constrain``
-calls have no effect on one device and are dropped; its scans over the
-stacks are Python loops over stacks unbound once (``lm._layers``).  The
+calls sit before each mLSTM block and each Mamba2 layer; its scans over
+the stacks are Python loops over stacks unbound once (``lm._layers``).  The
 reference's remat units run under ``remat_wrap(cfg.remat_policy)``: an
 xLSTM group (its sLSTM block and the k-1 mLSTM blocks after it) and each
 Mamba2 layer.  Without gradients (serving) the wrapper calls them
@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain
 from .attention import gqa_attention, gqa_cache_spec, gqa_params
 from .common import ParamInfo, ShapeDtype, map_tree, remat_wrap, rms_norm
 from .ffn import mlp, mlp_params
@@ -132,6 +133,7 @@ def xlstm_forward(cfg: ModelConfig, params, batch, caches=None, positions=None,
             new_s.put(i, state)
         for j, pm in enumerate(pms):
             cm = _at(caches["mlstm"], i, j) if decode else None
+            xc = constrain(xc, ("batch", "seq", None))
             xc, state = _block(cfg, mlstm_decode_step, mlstm_scan, pm, xc, cm, decode, prefill)
             if state is not None:
                 new_m.put((i, j), state)
@@ -226,6 +228,7 @@ def zamba_forward(cfg: ModelConfig, params, batch, caches=None, positions=None,
     def mamba(xc, i, pm):
         # as xLSTM's group: a state is made only when serving, without gradients
         cm = _at(caches["mamba"], i) if decode else None
+        xc = constrain(xc, ("batch", "seq", None))
         xc, state = _block(cfg, mamba_decode_step, mamba_scan, pm, xc, cm, decode, prefill)
         if state is not None:
             new_mamba.put(i, state)

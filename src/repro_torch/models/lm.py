@@ -37,8 +37,16 @@ Deliberate differences:
   ``_trunk`` does; ``decode_stack`` copies the decoder's caches once per
   call, so a caller's caches are left as they were.
 
-The reference's ``constrain`` calls are dropped (no-ops without sharding
-rules).  The ssm and hybrid families are assembled in ``hybrid`` from
+* Under sharding rules each block gathers its FSDP-sharded weights over
+  the data axes first (``sharding.gather_fsdp``, where GSPMD inserts the
+  gather), and so do the embedding and the head; the token lookup on a
+  vocab-sharded table is ``_vocab_parallel_lookup`` (local rows, one
+  reduction, and a gradient kept on the rank's rows).  Without rules
+  both are the plain lookup.
+
+The reference's ``constrain`` calls sit at its sites (the trunk's input,
+each stacked block's input and output, each encoder and decoder block's
+input).  The ssm and hybrid families are assembled in ``hybrid`` from
 this module's embedding, head and stacking helpers.
 """
 from __future__ import annotations
@@ -47,8 +55,10 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain, gather_fsdp
 from .attention import (
     gqa_attention,
     gqa_cache_spec,
@@ -94,8 +104,22 @@ def _layers(stacked: Dict[str, Any]):
     """The per-layer parameter trees of a stacked tree, in order: each
     leaf unbound once along its leading axis."""
     n = next(iter_leaves(stacked))[1].shape[0]
-    rows = map_tree(lambda _, a: a.unbind(0), stacked)
+    rows = map_tree(lambda _, a: _unbind(a), stacked)
     return [map_tree(lambda _, r: r[i], rows) for i in range(n)]
+
+
+def _unbind(a: torch.Tensor):
+    """``a.unbind(0)``.  A DTensor (its layers axis never sharded) is
+    unbound shard by shard and each row rewrapped with its placements one
+    dim down, so the backward stacks local gradients, each already on its
+    row's layout (DTensor's own unbind would redistribute the rows'
+    gradients to one layout before stacking them)."""
+    if not isinstance(a, DTensor):
+        return a.unbind(0)
+    pls = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in a.placements)
+    return tuple(DTensor.from_local(r, a.device_mesh, pls, run_check=False, shape=a.shape[1:],
+                                    stride=torch.empty(a.shape[1:], device="meta").stride())
+                 for r in a.to_local().unbind(0))
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -136,18 +160,22 @@ def _block_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """(output, the layer's cache, the MoE aux term: float32 0 for an
     MLP layer)."""
+    p = gather_fsdp(p)
     res_scale = _scalar(cfg.scale_residual, x.dtype)
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    # the column-parallel inputs: their gradients meet in one all-reduce
+    h = constrain(rms_norm(x, p["ln_attn"], cfg.norm_eps), ("batch", "seq", None))
     attend = mla_attention if cfg.mla else gqa_attention
     attn_out, new_cache = attend(p["attn"], h, positions, cfg, cache=cache)
-    x = x + attn_out * res_scale
-    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    # a row-parallel output meets in one all-reduce before the residual
+    # add (DTensor would otherwise make the residual partial too)
+    x = x + constrain(attn_out, ("batch", "seq", None)) * res_scale
+    h = constrain(rms_norm(x, p["ln_mlp"], cfg.norm_eps), ("batch", "seq", None))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
         ffn_out, aux = moe_ffn(p["moe"], h, cfg)
     else:
         ffn_out = mlp(p["mlp"], h)
-    x = x + ffn_out * res_scale
+    x = x + constrain(ffn_out, ("batch", "seq", None)) * res_scale
     return x, new_cache, aux
 
 
@@ -214,8 +242,13 @@ def _trunk(
         cl = None if caches is None else new_caches[f"dense_{i}"]
         x, _, aux = _block_apply(cfg, params[f"dense_layer_{i}"], x, positions, cl)
         aux_total = aux_total + aux
-    body = remat_wrap(lambda pl, xc, cl: _block_apply(cfg, pl, xc, positions, cl)[::2],
-                      cfg.remat_policy)
+
+    def body(pl, xc, cl):
+        xc = constrain(xc, ("batch", "seq", None))
+        xo, _, aux = _block_apply(cfg, pl, xc, positions, cl)
+        return constrain(xo, ("batch", "seq", None)), aux
+
+    body = remat_wrap(body, cfg.remat_policy)
     for i, pl in enumerate(_layers(params["layers"])):
         cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
         x, aux = body(pl, x, cl)
@@ -224,7 +257,7 @@ def _trunk(
 
 
 def _head(cfg: ModelConfig, params) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return gather_fsdp(params["embed"].T if cfg.tie_embeddings else params["lm_head"])
 
 
 def _logits(cfg: ModelConfig, params, x, head_mode: str = "full"):
@@ -238,8 +271,47 @@ def _logits(cfg: ModelConfig, params, x, head_mode: str = "full"):
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens, dtype):
-    x = params["embed"][tokens].to(dtype)
+    table = gather_fsdp(params["embed"])
+    x = _vocab_parallel_lookup(table, tokens) if isinstance(table, DTensor) else table[tokens]
+    x = constrain(x, ("batch", "seq", None)).to(dtype)
     return x * _scalar(cfg.scale_emb, dtype)
+
+
+def _vocab_parallel_lookup(table: DTensor, tokens) -> DTensor:
+    """``table[tokens]`` for a table [V, d] whose vocab rows are split
+    over some mesh dims (``model``) and whole on the others: each rank
+    looks up the tokens that fall in its own rows (zeros elsewhere), so
+    the output is a pending sum over the vocab dims, which the caller's
+    ``constrain`` reduces.  The gradient stays on the rank's rows: a
+    pending sum over the dims that split the tokens (the batch over
+    ``data``), which the FSDP gather's backward reduce-scatters onto the
+    shard.  (DTensor's own embedding backward builds the whole [V, d]
+    gradient on every rank.)  A table whole on every dim, or tokens split
+    over a vocab dim, take DTensor's own rule."""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(torch.as_tensor(tokens, device=table.device), mesh,
+                                    [Replicate()] * mesh.ndim, run_check=False)
+    tab, tok = tuple(table.placements), tuple(tokens.placements)
+    vocab = [i for i, p in enumerate(tab) if p.is_shard(0)]
+    if not vocab or any(not tok[i].is_replicate() for i in vocab) or any(
+            not (p.is_replicate() or p.is_shard(0)) for p in tab):
+        return torch.nn.functional.embedding(tokens, table)
+    grad = [p if p.is_shard() else (Partial() if tok[i].is_shard() else Replicate())
+            for i, p in enumerate(tab)]
+    local = table.to_local(grad_placements=grad)
+    n = local.shape[0]
+    lo = 0  # this rank's block of the vocab rows, the outer mesh dim first
+    for i in vocab:
+        lo = lo * mesh.mesh.shape[i] + mesh.get_local_rank(i)
+    ids = tokens.to_local().long() - lo * n
+    inside = (ids >= 0) & (ids < n)
+    rows = torch.where(inside[..., None], local[ids.clamp(0, n - 1)], 0.0)
+    shape = torch.Size(tuple(tokens.shape) + (table.shape[1],))
+    return DTensor.from_local(rows, mesh, [Partial() if i in vocab else tok[i]
+                                           for i in range(mesh.ndim)],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _decoder_hidden(cfg: ModelConfig, params, batch, caches=None, positions=None):
@@ -256,6 +328,7 @@ def _decoder_hidden(cfg: ModelConfig, params, batch, caches=None, positions=None
         positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
     else:
         positions = torch.as_tensor(positions, device=dev)
+    x = constrain(x, ("batch", "seq", None))
     return _trunk(cfg, params, x, positions, caches)
 
 
@@ -394,7 +467,9 @@ def encode(cfg: ModelConfig, params, frames) -> torch.Tensor:
     dev = params["embed"].device
     x = torch.as_tensor(frames, device=dev).to(compute_dtype(cfg))
     positions = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
-    body = remat_wrap(lambda pl, xc: _enc_block_apply(cfg, pl, xc, positions), cfg.remat_policy)
+    body = remat_wrap(
+        lambda pl, xc: _enc_block_apply(cfg, pl, constrain(xc, ("batch", "seq", None)), positions),
+        cfg.remat_policy)
     for pl in _layers(params["enc_layers"]):
         x = body(pl, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -436,7 +511,8 @@ def decode_stack(cfg: ModelConfig, params, tokens, enc_out, caches=None, positio
     if caches is not None:
         new_caches = {"layers": {k: c.clone() for k, c in caches["layers"].items()}}
     body = remat_wrap(
-        lambda pl, xc, cl: _dec_block_apply(cfg, pl, xc, positions, enc_out, cl, enc_valid)[0],
+        lambda pl, xc, cl: _dec_block_apply(cfg, pl, constrain(xc, ("batch", "seq", None)),
+                                            positions, enc_out, cl, enc_valid)[0],
         cfg.remat_policy)
     for i, pl in enumerate(_layers(params["dec_layers"])):
         cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}

@@ -32,7 +32,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.protocol import resolve_device
 from . import hybrid, lm
-from .common import ParamTree, ShapeDtype, chunked_softmax_xent, map_tree, materialize
+from .common import ParamTree, ShapeDtype, chunked_softmax_xent, iter_leaves, map_tree, materialize
 
 _RECURRENT = {  # family: (abstract, forward, cache_abstract)
     "ssm": (hybrid.xlstm_abstract, hybrid.xlstm_forward, hybrid.xlstm_cache_abstract),
@@ -269,17 +269,26 @@ class RecurrentModel(Model):
         return self._forward({"tokens": tokens}, caches=caches, positions=positions)
 
 
-def build_model(cfg: ModelConfig, *, seed: int = 0, device=None, train: bool = False) -> Model:
+def build_model(cfg: ModelConfig, *, seed: int = 0, device=None, train: bool = False,
+                mesh=None) -> Model:
     """A model of ``cfg`` (an :class:`EncDecModel` for the encdec
     family, a :class:`RecurrentModel` for ssm and hybrid) with weights
     drawn by ``materialize`` from a ``torch.Generator`` seeded with
     ``seed``, on ``device`` (default: the GPU): to serve, each weight in
     the dtype ``lm.stored_infos`` gives it; to ``train``, every weight in
-    float32 with ``requires_grad``."""
+    float32 with ``requires_grad``.  On a ``mesh`` (every rank calling
+    with the same seed) each leaf is placed as it is drawn: a DTensor by
+    ``sharding.param_pspecs``, of which the rank keeps only its shard."""
     infos = params_abstract(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = materialize(infos if train else lm.stored_infos(cfg, infos), gen, device)
+    then = None
+    if mesh is not None:
+        from ..distributed.sharding import param_shardings, place_leaf
+
+        sh = dict(iter_leaves(param_shardings(infos, mesh)))
+        then = lambda name, t: place_leaf(t, sh[name], mesh, device)  # noqa: E731
+    params = materialize(infos if train else lm.stored_infos(cfg, infos), gen, device, then)
     cls = {"encdec": EncDecModel, **dict.fromkeys(_RECURRENT, RecurrentModel)}.get(cfg.family, Model)
     return cls(cfg, params, train)

@@ -20,6 +20,8 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.common import iter_leaves, map_tree
 
@@ -51,8 +53,41 @@ def _decay_mask(params, no_decay) -> Dict[str, Any]:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
+    """sqrt of the sum of every leaf's float32 sum of squares.  Over
+    DTensor leaves: the norm over all shards (``sharded_global_norm``)."""
+    if _sharded(tree):
+        return sharded_global_norm(tree)
     return torch.sqrt(sum(x.float().square().sum() for _, x in iter_leaves(tree)))
+
+
+def _sharded(tree) -> bool:
+    return isinstance(next(iter_leaves(tree))[1], DTensor)
+
+
+def sharded_global_norm(tree) -> torch.Tensor:
+    """The global norm of a tree of DTensors as a plain 0-d float32 tensor,
+    the same value on every rank: each rank sums the squares of its local
+    shards -- a leaf replicated over a mesh dim counted only on that dim's
+    first rank -- and one all-reduce over the default group (which the
+    mesh spans) adds them."""
+    total = None
+    mesh = None
+    for _, x in iter_leaves(tree):
+        mesh = x.device_mesh
+        coord = mesh.get_coordinate()
+        local = x.to_local().float().square().sum()
+        if any(c != 0 for c, pl in zip(coord, x.placements) if pl.is_replicate()):
+            local = torch.zeros_like(local)
+        total = local if total is None else total + local
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the sharded norm reduces over the default group: the mesh must span it")
+    dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
+def _local(tree):
+    """Each DTensor leaf's local shard (sharing its storage)."""
+    return map_tree(lambda _, x: x.to_local(), tree)
 
 
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
@@ -67,6 +102,16 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     parameters and moments updated in place.  The gradients are clipped
     to ``clip_norm`` by their global norm first."""
     gnorm = global_norm(grads)
+    if _sharded(params):
+        # the rest is elementwise: each rank updates its own shards in place
+        grads, params_local = _local(grads), _local(params)
+        state_local = AdamWState(step=state.step, mu=_local(state.mu), nu=_local(state.nu))
+        _, new, om = _update(grads, state_local, params_local, cfg, gnorm)
+        return params, AdamWState(step=new.step, mu=state.mu, nu=state.nu), om
+    return _update(grads, state, params, cfg, gnorm)
+
+
+def _update(grads, state: AdamWState, params, cfg: AdamWConfig, gnorm: torch.Tensor):
     # a true division (``float / tensor`` would multiply by a reciprocal)
     scale = torch.clamp_max(torch.full_like(gnorm, cfg.clip_norm) / (gnorm + 1e-9), 1.0)
     step = state.step + 1

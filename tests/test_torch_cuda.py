@@ -749,7 +749,7 @@ def test_reduced_train_step_on_the_card_equals_the_cpu_run(cuda):
     data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4))
     runs = []
     for model in (cpu_model, card_model):
-        step = build_train_step(model, shape, lr=1e-3, schedule="wsd", total_steps=3)
+        step = build_train_step(model, None, shape, lr=1e-3, schedule="wsd", total_steps=3)
         params, opt, metrics = model.params(), None, []
         opt = adamw_init(params, step.opt_cfg)
         for i in range(3):

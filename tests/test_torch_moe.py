@@ -277,16 +277,47 @@ def _caches_close(rc, tc):
             _close(r, t, **CACHE)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_decode_and_hidden_step_at_float32(arch):
-    rm, tm = _pair(arch)
-    params = _ref_params(arch)[0]
+def _f32_caches(tree):
+    """A cache tree (the reference's or the port's) with every float leaf
+    in float32: the prefill and the steps then write and read float32
+    K/V, so no bfloat16 rounding boundary sits inside a float32
+    comparison."""
+    if isinstance(next(iter(tcm.iter_leaves(tree)))[1], torch.Tensor):
+        return tcm.map_tree(lambda _, a: a.float() if a.is_floating_point() else a, tree)
+    return jax.tree.map(lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
+
+
+def _bf16_valued(tree):
+    """The reference's float32 caches rounded to bfloat16 values (kept in
+    float32): what ``convert.decoder_cache_from_reference`` carries
+    exactly into the port's bfloat16 buffers."""
+    return jax.tree.map(
+        lambda a: a.astype(jnp.bfloat16).astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a,
+        tree)
+
+
+def _prefill_decode_and_hidden_step(rm, tm, params, arch, bf16_caches=False):
+    """Prefill, ``GEN`` greedy decode steps, ``hidden_step``, then the
+    same step from the reference's caches carried into the port's
+    bfloat16 buffers; logits (or hidden states) and every cache leaf
+    after each.  With float32 caches (``_f32_caches``) the logits are
+    held to ``F32``.  With the models' own bfloat16 caches a K/V entry
+    within a float32 ulp of a bfloat16 rounding boundary may round either
+    way, depending on the CPU's summation order: the caches are held to
+    ``CACHE`` (one bfloat16 ulp) and the logits to one bfloat16 ulp of
+    the largest (``_bf16_logits``), which such a flip stays far inside
+    (it moved a logit by 2.8e-4 of a largest 3.77)."""
     prompts = _prompts(tm.cfg)
-    rc, tc = rm.init_cache(B, T + GEN + 1), tm.init_cache(B, T + GEN + 1)
+    if bf16_caches:
+        rc, tc = rm.init_cache(B, T + GEN + 1), tm.init_cache(B, T + GEN + 1)
+        close = _bf16_logits
+    else:
+        rc, tc = (_f32_caches(m.init_cache(B, T + GEN + 1)) for m in (rm, tm))
+        close = lambda r, t: _close(r, t, **F32)  # noqa: E731
     rl, rc = jax.jit(rm.prefill)(params, {"tokens": prompts}, rc)
     tl, tc = tm.prefill({"tokens": prompts}, tc)
     assert tuple(tl.shape) == (B, 1, tm.cfg.padded_vocab)
-    _close(rl, tl, **F32)
+    close(rl, tl)
     _caches_close(rc, tc)
     tok = np.asarray(jnp.argmax(rl[:, -1], -1)).astype(np.int32)
     step = jax.jit(rm.decode_step)
@@ -294,20 +325,58 @@ def test_prefill_decode_and_hidden_step_at_float32(arch):
         pos = np.full((B, 1), T + i, np.int32)
         rl, rc = step(params, tok[:, None], rc, pos)
         tl, tc = tm.decode_step(tok[:, None], tc, pos)
-        _close(rl, tl, **F32)
+        close(rl, tl)
         _caches_close(rc, tc)
         tok = np.asarray(jnp.argmax(rl[:, -1], -1)).astype(np.int32)
     pos = np.full((B, 1), T + GEN, np.int32)
-    rh, rc2 = jax.jit(rm.hidden_step)(params, tok[:, None], rc, pos)
+    hidden = jax.jit(rm.hidden_step)
+    rh, rc2 = hidden(params, tok[:, None], rc, pos)
     th, tc2 = tm.hidden_step(tok[:, None], tc, pos)
-    _close(rh, th, **F32)
+    close(rh, th)
     _caches_close(rc2, tc2)
-    # the same step from the reference's own caches, carried across
-    carried = convert.decoder_cache_from_reference(tm.cfg, jax.tree.map(np.asarray, rc))
-    _caches_close(rc, carried)
+    # the same step from the reference's caches carried into the port's
+    # bfloat16 buffers (values a bfloat16 holds, so the carry is exact)
+    rc_b = rc if bf16_caches else _bf16_valued(rc)
+    carried = convert.decoder_cache_from_reference(tm.cfg, jax.tree.map(np.asarray, rc_b))
+    assert all(c.dtype == torch.bfloat16 for n, c in tcm.iter_leaves(carried) if not n.endswith("idx"))
+    if not bf16_caches:
+        carried = _f32_caches(carried)
+    _caches_close(rc_b, carried)
+    rh, _ = hidden(params, tok[:, None], rc_b, pos)
     th, _ = tm.hidden_step(tok[:, None], carried, pos)
-    _close(rh, th, **F32)
+    close(rh, th)
     np.testing.assert_array_equal(np.asarray(rm.head_matrix(params)), tm.head_matrix().numpy())
+
+
+def _bf16_logits(ref, port):
+    """Within one bfloat16 ulp (2**-7) of the reference's largest value."""
+    _close(ref, port, rtol=0, atol=2.0**-7 * float(np.abs(_np(ref)).max()))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_and_hidden_step_at_float32(arch):
+    """At float32 compute: once with float32 caches in both packages
+    (logits to ``F32``), once with the models' own bfloat16 caches (the
+    caches to one bfloat16 ulp, the logits to one bfloat16 ulp of the
+    largest); see ``_prefill_decode_and_hidden_step``."""
+    rm, tm = _pair(arch)
+    for bf16_caches in (False, True):
+        _prefill_decode_and_hidden_step(rm, tm, _ref_params(arch)[0], arch, bf16_caches)
+
+
+@pytest.mark.parametrize("caches", ["float32", "bfloat16"])
+def test_float32_check_fails_on_one_perturbed_weight(caches):
+    """Each run of the check above catches a real fault: one entry of
+    DeepSeek's ``w_dkv`` moved by 1e-3 in the port only.  (With bfloat16
+    caches the cache check fails: the entries it feeds move by ~100
+    bfloat16 ulps, where the logits move by ~3e-3 and so stay within one
+    bfloat16 ulp of the largest.)"""
+    arch = ARCHS[0]
+    rm, tm = _pair(arch)
+    with torch.no_grad():
+        tm.get_parameter("layers.attn.w_dkv").view(-1)[7] += 1e-3
+    with pytest.raises(AssertionError, match="Not equal to tolerance"):
+        _prefill_decode_and_hidden_step(rm, tm, _ref_params(arch)[0], arch, caches == "bfloat16")
 
 
 def test_steps_leave_the_callers_dense_prologue_cache_as_it_was():

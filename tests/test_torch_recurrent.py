@@ -121,16 +121,17 @@ def _prompts(cfg, seed=1, b=B, t=T):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
 
 
-def _caches_close(rc, tc, tol=CACHE):
+def _caches_close(rc, tc, tol=CACHE, bf16=None):
     """Every leaf of two cache trees: the same names and dtypes, float
-    leaves within ``tol``, integer leaves (write positions) equal."""
+    leaves within ``tol`` (bfloat16 leaves within ``bf16`` where given),
+    integer leaves (write positions) equal."""
     ref = dict(tcm.iter_leaves(jax.tree.map(np.asarray, rc)))
     port = dict(tcm.iter_leaves(tc))
     assert sorted(ref) == sorted(port)
     for name, x in ref.items():
         assert str(port[name].dtype).removeprefix("torch.") == str(x.dtype), name
         if port[name].is_floating_point():
-            _close(x, port[name], **tol)
+            _close(x, port[name], **(bf16 if bf16 and port[name].dtype == torch.bfloat16 else tol))
         else:
             np.testing.assert_array_equal(x, port[name].numpy(), err_msg=name)
 
@@ -377,12 +378,37 @@ def test_prefill_then_decode_steps_with_every_cache_leaf(arch):
         _caches_close(rc, tc)
         cl, cc = tm.decode_step(tok[:, None], carried, pos)
         _close(rl, cl, **F32)
-        _caches_close(rc, cc, F32)
+        # a bfloat16 leaf written by the step rounds a float32 value that
+        # can sit a few ulps from a rounding boundary, one way or the other
+        # by the CPU's summation order: one bfloat16 ulp (CACHE), as the
+        # leaves of the steps above; every float32 leaf stays at F32
+        _caches_close(rc, cc, F32, bf16=CACHE)
         if i == 0:  # prefill over T + 1 tokens == prefill over T, then this step
             whole, _ = tm.prefill({"tokens": prompts}, tm.init_cache(B, max_len))
             _close(tl, whole, **F32)
         tok = np.asarray(jnp.argmax(rl[:, -1], -1)).astype(np.int32)
         np.testing.assert_array_equal(tserve.argmax_last(tl, tm.cfg.vocab_size), tok)
+
+
+def test_carried_step_cache_check_fails_on_one_perturbed_weight():
+    """The carried step's cache check above (bfloat16 leaves within
+    ``CACHE``, float32 leaves within ``F32``) catches a real fault: one
+    entry of the first Mamba2 layer's ``d_skip`` moved by 1e-3 in the port."""
+    rm, tm = _pair(ZAMBA)
+    params = _ref_params(ZAMBA)[0]
+    prompts = _prompts(rm.cfg, seed=3, t=T + 1)
+    max_len = T + GEN + 1
+    _, rc = jax.jit(rm.prefill)(params, {"tokens": prompts[:, :T]}, rm.init_cache(B, max_len))
+    carried = convert.decoder_cache_from_reference(tm.cfg, jax.tree.map(np.asarray, rc))
+    pos = np.full((B, 1), T, np.int32)
+    _, rc = jax.jit(rm.decode_step)(params, prompts[:, T:], rc, pos)
+    _, cc = tm.decode_step(prompts[:, T:], carried, pos)
+    _caches_close(rc, cc, F32, bf16=CACHE)
+    with torch.no_grad():
+        tm.get_parameter("mamba.core.d_skip").view(-1)[0] += 1e-3
+    _, cc = tm.decode_step(prompts[:, T:], carried, pos)
+    with pytest.raises(AssertionError, match="Not equal to tolerance"):
+        _caches_close(rc, cc, F32, bf16=CACHE)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

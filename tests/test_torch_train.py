@@ -471,7 +471,7 @@ def test_n_micro_equals_the_reference_over_a_grid():
             fn = inspect.getclosurevars(rsteps.build_train_step(
                 model, mesh, shape, microbatch_seqs=mbs).fn).nonlocals["fn"]
             want = inspect.getclosurevars(fn).nonlocals["n_micro"]
-            port = tsteps.build_train_step(tmodel, shape, microbatch_seqs=mbs)
+            port = tsteps.build_train_step(tmodel, None, shape, microbatch_seqs=mbs)
             assert port.n_micro == tsteps.n_micro_steps(gb, mbs) == want, (gb, mbs)
 
 
@@ -492,7 +492,7 @@ def _ref_run(rc, np_params, data, steps, shape, **kw):
 
 def _port_run(tc, np_params, data, steps, shape, **kw):
     model = _port_model(tc, np_params)
-    step = tsteps.build_train_step(model, shape, **kw)
+    step = tsteps.build_train_step(model, None, shape, **kw)
     params = model.params()
     opt = topt.adamw_init(params, step.opt_cfg)
     metrics = []
@@ -562,7 +562,7 @@ def test_six_straight_steps_equal_three_saved_restored_and_three(tmp_path):
     straight, straight_opt, _ = _port_run(tc, np_params, data, range(6), shape, **kw)
 
     model = _port_model(tc, np_params)
-    step = tsteps.build_train_step(model, shape, **kw)
+    step = tsteps.build_train_step(model, None, shape, **kw)
     params = model.params()
     opt = topt.adamw_init(params, step.opt_cfg)
     for i in range(3):
