@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--batch 4] [--reps 5]
     python3 chip_smoke.py --variant-path f32|int32 [--src DIR] [--k 5120]
-    python3 chip_smoke.py --only train|mesh|staging [--src DIR]
+    python3 chip_smoke.py --only train|mesh|staging|dryrun [--src DIR]
 
 Phases (each raises on failure; the exit code is then not 0):
 
@@ -216,12 +216,14 @@ Phases (each raises on failure; the exit code is then not 0):
              with 4 cards or more, else gloo ranks sharing card 0 whose
              DTensor collectives run as plain gloo ones,
              ``distributed.staged``) on a 2x2 (data, model) mesh.
-             ``[mesh train]``: MiniCPM-2B at full width and depth, FSDP +
+             ``[mesh train]``: MiniCPM-2B at full width, 2 of its 40
+             layers (``MESH_LAYERS``: the cut that fits the script's time
+             limit, PERF.md section 4), FSDP +
              TP from ``param_pspecs``, 2 steps of
              ``build_train_step`` at the launcher's defaults (2 micro-steps
              of 2 x 256 tokens a data shard): step 0's loss within 1e-3
              relative of the one-device model's on the same weights and
-             rows and of ``[train]``'s step 0, CUDA-event ms, tokens/s,
+             rows (and of ``[train]``'s step 0 at all 40), CUDA-event ms, tokens/s,
              each rank's peak in training (read after the build, whose
              own peak is printed beside it) and serving;
              ``[mesh comm]``: one micro-step's all-gathers, reduce-scatters
@@ -231,13 +233,31 @@ Phases (each raises on failure; the exit code is then not 0):
              ``[mesh train reduced]``: the reduced model at float32, 2 steps
              on the mesh against one rank, every parameter within 1e-5 of
              its leaf's largest; ``[mesh serve]``: the sharded prefill (4 x
-             256) and 8 decode steps against the one-device model, logits
+             256) and 2 decode steps against the one-device model, logits
              within 2**-5 of the largest, greedy tokens equal where the
              top-2 margin exceeds that; ``[pipeline]``: ``pipeline_forward``
              over 4 stages of 10 blocks (float32, 8 micro-batches of 256
              tokens) against the sequential trunk within 2**-10 of its
-             largest value, ms and bubble.  No TPU kernel launches on any
-             rank.
+             largest value, ms and bubble.  ``[mesh hybrid]``, in the same
+             ranks: Zamba2-2.7B (54 Mamba2 layers, the shared block every
+             6) at full width and depth, bfloat16 weights, served on the
+             2x2 mesh through the sharded prefill (4 x 256) and 8 decode
+             steps, the path of ``launch/serve.py --mesh 2x2``; then the
+             prefill and 4 decode steps again on the same weights (stored
+             and gathered in bfloat16, cast at use) at float32 compute,
+             whose last logits
+             must be within 2**-5 of the largest of the one-device
+             model's at float32 compute (the bfloat16 figure recorded
+             beside it); prefill and decode ms, each rank's peak, one
+             decode step's collectives by kind.  No TPU kernel launches
+             on any rank.
+19. dryrun — ``repro_torch.launch.dryrun`` in a spawned process on a fake
+             process group (no card): ``[mesh train]``'s own configuration on 2x2,
+             whose micro-step collectives (counts and bytes a rank sends)
+             must equal ``[mesh comm]``'s measured ones, its predicted peak
+             beside the measured one; then ``minicpm-2b x train_4k`` on the
+             production meshes (16 x 16 and 2 x 16 x 16): bytes, FLOPs and
+             collectives a rank, trace seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits with code 2 and prints no result.
@@ -246,7 +266,8 @@ script exits with code 2 and prints no result.
 from the ``--src`` tree); ``--only mesh`` only the mesh phases (no
 ``[train]`` loss to hold step 0 against beyond the one-device model's);
 ``--only staging`` only the comparison of a gloo collective's two forms
-on ranks sharing the card (``staging_rank``).  Each prints one JSON line.
+on ranks sharing the card (``staging_rank``); ``--only dryrun`` only the
+dry-run's three cells.  Each prints one JSON line.
 
 ``--variant-path`` runs none of the phases above.  It times one kernel
 variant at each launch site of ``run_batched`` (at contraction depth
@@ -415,6 +436,32 @@ def kernel_cases():
     # the grids: N tiles past grid.y's 65535, M past it (f32_wgmma's A split)
     cases += [((40, 6), (6, 10_000_000), "uniform", 2), ((70_000, 40), (40, 8), "uniform", 2)]
     return cases
+
+
+# f32_wgmma_masked takes no launch site on any path (choose_design sends
+# every masked f32 product of the engine to f32_skinny_masked); phase 2
+# launches it at these shapes among others (the largest output, and a
+# ragged tile past one fold), where it is timed beside its bound
+PHASE2_WGMMA_MASKED = (((40, 6), (6, 10_000_000), 2), ((2, 129, 513), (2, 513, 127), 3))
+
+
+def time_wgmma_masked(torch, K, ref, args) -> list:
+    """``[timing]`` lines of ``f32_wgmma_masked`` at ``PHASE2_WGMMA_MASKED``
+    (each output checked against its plain version first).  The entries
+    stay off the ``kernels`` line: no path launches this kernel, and no
+    single PyTorch call computes a masked product (no library time)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 11)
+    out = []
+    for sa, sb, z in PHASE2_WGMMA_MASKED:
+        e = measure_site(torch, K, ref, gen, "modmatmul_f32_masked", "f32", True, "phase 2",
+                         sa, sb, z, 0, args)
+        if e["kernel"] != "f32_wgmma_masked":
+            raise AssertionError(f"{sa} @ {sb}: {e['kernel']}, not f32_wgmma_masked")
+        out.append(e)
+    log(f"[timing] f32_wgmma_masked takes no site on any path: the lines above are phase 2's "
+        f"shapes, off the kernels line")
+    return out
 
 
 def phase_kernels(torch, K, ref, seed: int) -> int:
@@ -3454,22 +3501,34 @@ def sharded_entries(torch, K, ref, sharded: dict, entries: list, args) -> list:
 # ----------------------------------------------------------------------
 MESH_RANKS = 4
 MESH_SHAPE = (2, 2)
-# [mesh train], [mesh comm] and [mesh serve] run MiniCPM-2B at full width
-# and depth (a rehearsal or a probe may cut the layers here).  Two steps,
-# one of them warm: a full-depth step of gloo ranks sharing the card is
-# ~45 s on an H100 80GB HBM3 at 700 W, and a third took the script to
-# 1060 s of its 1200 s limit (PERF.md).
-MESH_LAYERS = TRAIN_LAYERS
+# [mesh train], [mesh comm] and [mesh serve] run MiniCPM-2B at full width,
+# cut to 2 of its 40 layers, and [mesh serve] decodes 2 steps, not 8: on
+# an H100 80GB HBM3 at 700 W a full-depth step of gloo ranks sharing the
+# card took 46.9-50.6 s, and with [mesh hybrid] and [dryrun] the script
+# took 1121.1 s at 24 layers and 8 steps on one machine, 1255.2 s at 16
+# layers and 4 steps on another and 1078.1 s at 4 layers and 2 steps on a
+# third, against its 1200 s limit (PERF.md 4).  Two steps, one warm.
+MESH_LAYERS = 2
 MESH_TRAIN = dict(seq_len=256, global_batch=8, microbatch_seqs=2, steps=2)
 MESH_LOSS0_RTOL = 1e-3
 MESH_REDUCED = dict(seq_len=32, global_batch=8, microbatch_seqs=2, steps=2)
 MESH_REDUCED_TOL = 1e-5
-MESH_SERVE = dict(batch=4, prompt_len=256, gen_len=8)
+MESH_SERVE = dict(batch=4, prompt_len=256, gen_len=2)
 MESH_SERVE_TOL = 2.0**-5  # tests/test_torch_models.py's bf16_tol, of the largest logit
 PIPE = dict(stages=4, layers=10, micro=8, tokens=256)
 PIPE_TOL = 2.0**-10
 PIPE_SEED = 4321
 MESH_JOIN_SECONDS = 900
+# [mesh hybrid]: Zamba2-2.7B (src/repro/configs/zamba2_2_7b.py, arXiv:2411.15242)
+# at full width and depth, served as launch/serve.py --mesh 2x2 serves it
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_SERVE = dict(batch=4, prompt_len=256, gen_len=8)
+HYBRID_TOL = 2.0**-5  # of the largest logit, at float32 compute (C12)
+# the float32-compute check runs the prefill and the first 4 decode steps
+# (the bfloat16 serve runs all 8): a step of either takes 4.4-8.0 s on
+# gloo ranks sharing an H100 80GB HBM3 at 700 W, and the script keeps to
+# its time limit (PERF.md 4)
+HYBRID_CHECK_STEPS = 4
 
 
 def mesh_rank(rank: int, d: int, src: str, store: str, out: str, nccl: bool, device: str) -> None:
@@ -3798,6 +3857,8 @@ def mesh_rank(rank: int, d: int, src: str, store: str, out: str, nccl: bool, dev
             del h
         del piped
         free()
+
+        res["hybrid"] = mesh_hybrid(torch, np, mesh, dev, card, rank, say, timed, peak, free)
         if (dict(K.LAUNCHES), dict(K.LAUNCHES_BY_KERNEL)) != launches:
             raise AssertionError(f"[mesh] rank {rank}: a TPU kernel launched: {K.LAUNCHES}")
         res["lines"] = lines
@@ -3806,6 +3867,120 @@ def mesh_rank(rank: int, d: int, src: str, store: str, out: str, nccl: bool, dev
         dist.destroy_process_group()
     with open(out, "w") as f:
         json.dump(res, f)
+
+
+def mesh_hybrid(torch, np, mesh, dev, card: bool, rank: int, say, timed, peak, free) -> dict:
+    """[mesh hybrid], inside ``mesh_rank``: Zamba2-2.7B drawn from seed 0
+    and sharded as it is drawn (bfloat16 weights), served on ``mesh``
+    through the sharded prefill and decode bundles (``HYBRID_SERVE``), the
+    greedy tokens the mesh's own; then the same weights at float32
+    compute over the prefill and ``HYBRID_CHECK_STEPS`` decode steps.
+    Rank 0 checks each run's last logits against the one-device
+    model's on the same tokens: at float32 within ``HYBRID_TOL`` of the
+    largest, in bfloat16 recorded.  ``card`` false: the reduced config
+    on the CPU ranks."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.distributed import comm
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import describe
+    from repro_torch.models import build_model
+    from repro_torch.models.common import iter_leaves
+
+    cfg = configs.get_config(HYBRID_ARCH)
+    hv = dict(HYBRID_SERVE)
+    if not card:
+        cfg = configs.reduced(cfg)
+        hv.update(prompt_len=16)
+    b, t = hv["batch"], hv["prompt_len"]
+    length = t + hv["gen_len"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device=dev, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    shard_bytes = sum(p.to_local().numel() * p.to_local().element_size()
+                      for _, p in iter_leaves(model.params()))
+    out = {"build_s": build_s, "shard_bytes": shard_bytes}
+    for dtype, n_steps in (("bfloat16", hv["gen_len"]), ("float32", HYBRID_CHECK_STEPS)):
+        if dtype == "float32":
+            # the same weights at float32 compute: every use casts a weight
+            # to the compute dtype (exactly, from bfloat16), so they stay
+            # stored, and gathered, in bfloat16
+            model = type(model)(dataclasses.replace(cfg, compute_dtype="float32"),
+                                model.params())
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        shape = lambda kind: dataclasses.replace(  # noqa: E731
+            configs.SHAPES["decode_32k"], kind=kind, seq_len=length, global_batch=b)
+        pre = tsteps.build_prefill_step(model, mesh, shape("prefill"))
+        dec = tsteps.build_decode_step(model, mesh, shape("decode"))
+        cache = model.init_cache(b, length)
+        (lg, cache), pre_ms = timed(lambda: pre(model.params(), {"tokens": prompts}, cache))
+        logits = [lg.full_tensor()[:, -1, :cfg.vocab_size].float().cpu()]
+        toks = [logits[-1].argmax(-1).to(torch.int32)]
+        dec_ms, counts = [], None
+        for i in range(n_steps):
+            pos = np.full((b, 1), t + i, np.int32)
+            with comm.CollectiveLog() as log:
+                (lg, cache), ms = timed(lambda: dec(model.params(), cache,
+                                                    toks[-1].numpy()[:, None], pos))
+            counts = counts or {"counts": dict(log.counts), "sent": dict(log.sent)}
+            dec_ms.append(ms)
+            logits.append(lg.full_tensor()[:, -1, :cfg.vocab_size].float().cpu())
+            toks.append(logits[-1].argmax(-1).to(torch.int32))
+        out[dtype] = {"prefill_ms": pre_ms, "decode_ms": dec_ms, "peak": peak(),
+                      "step_collectives": counts, "logits": logits, "tokens": toks}
+        del cache, lg, pre, dec
+        free()
+    del model
+    free()
+    if rank == 0:
+        one = build_model(cfg, seed=0, device=dev)
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32":  # the same weights at float32 compute, as on the mesh
+                one = type(one)(dataclasses.replace(cfg, compute_dtype="float32"), one.params())
+            run = out[dtype]
+            cache = one.init_cache(b, length)
+            lg, cache = one.prefill({"tokens": prompts}, cache)
+            ref = [lg[:, -1, :cfg.vocab_size].float().cpu()]
+            for i in range(len(run["decode_ms"])):
+                pos = np.full((b, 1), t + i, np.int32)
+                lg, cache = one.decode_step(run["tokens"][i].numpy()[:, None], cache, pos)
+                ref.append(lg[:, -1, :cfg.vocab_size].float().cpu())
+            worst = 0.0
+            for i, (a, r) in enumerate(zip(run["logits"], ref)):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"[mesh hybrid] {dtype} step {i}: logits not finite")
+                worst = max(worst, float((a - r).abs().max()) / float(r.abs().max()))
+            run["worst"] = worst
+            if dtype == "float32" and worst > HYBRID_TOL:
+                raise AssertionError(f"[mesh hybrid] float32: max |mesh - one device| is "
+                                     f"{worst} of the largest logit > {HYBRID_TOL}")
+            del cache, lg
+        del one
+        if card:
+            torch.cuda.empty_cache()
+        f, h = out["float32"], out["bfloat16"]
+        say(f"[mesh hybrid] {HYBRID_ARCH} ({cfg.num_layers} Mamba2 layers, d_model "
+            f"{cfg.d_model}, the shared block every {cfg.hybrid.shared_attn_every}; seed 0, "
+            f"{shard_bytes} bytes of bfloat16 shards a rank, built in {build_s:.1f} s) served on "
+            f"{describe(mesh)}: the sharded prefill ({b} x {t}) and {hv['gen_len']} decode steps. "
+            f"bfloat16: prefill {h['prefill_ms']:.1f} ms, decode ms "
+            f"{[round(x, 1) for x in h['decode_ms']]} (CUDA events); last logits within "
+            f"{h['worst']:.3e} of the largest against the one-device model (recorded). float32 "
+            f"compute on the same weights, the prefill and {len(f['decode_ms'])} of the steps: "
+            f"prefill {f['prefill_ms']:.1f} ms, decode ms "
+            f"{[round(x, 1) for x in f['decode_ms']]}; last logits within {f['worst']:.3e} of "
+            f"the largest against the one-device model at float32 compute (limit "
+            f"{HYBRID_TOL}); one bfloat16 decode step's collectives "
+            f"{h['step_collectives']['counts']}, bytes a rank sends "
+            f"{h['step_collectives']['sent']}")
+    free()
+    for dtype in ("bfloat16", "float32"):
+        out[dtype].pop("logits")
+        out[dtype]["tokens"] = [x.tolist() for x in out[dtype]["tokens"]]
+    return out
 
 
 def _stage_view(tree: dict, n: int) -> dict:
@@ -3882,8 +4057,111 @@ def phase_mesh(torch, K, loss0: float, args, device: str = "cuda") -> dict:
         f"{[r['train']['peak'] for r in ranks]} bytes in training (building and sharding the "
         f"model: {[r['train']['build_peak'] for r in ranks]}), "
         f"{[r['serve']['peak'] for r in ranks]} serving; no TPU kernel launched on any rank")
+    hyb = [r["hybrid"] for r in ranks]
+    log(f"[mesh hybrid] peak per rank {[h['bfloat16']['peak'] for h in hyb]} bytes serving in "
+        f"bfloat16, {[h['float32']['peak'] for h in hyb]} at float32 compute; shards "
+        f"{[h['shard_bytes'] for h in hyb]} bytes; no TPU kernel launched on any rank")
     log(f"[mesh] phase wall {secs:.1f} s with the ranks' start-up")
     return {"seconds": secs, "ranks": ranks, "nccl": nccl}
+
+
+# ----------------------------------------------------------------------
+# phase 19: the dry-run on fake tensors
+# ----------------------------------------------------------------------
+DRYRUN_JOIN_SECONDS = 600
+# the production cells are traced at 1 and 2 layers and extrapolated to
+# all 40 (dryrun.extrapolated; exactly the full trace's record on the CPU,
+# where the full traces take ~47 s each): traced whole, they took 105-113
+# s each on the chip machine's host, and at 2 and 4 layers 21 s
+DRYRUN_LAYERS = (1, 2)
+
+
+def dryrun_cells(src: str, out: str) -> None:
+    """In a spawned process (a fake process group of its own): the torch
+    dry-run of ``[mesh train]``'s configuration on 2x2 (MiniCPM-2B at
+    ``MESH_LAYERS``, ``MESH_TRAIN``'s batch), then ``minicpm-2b x
+    train_4k`` on the production meshes (extrapolated from
+    ``DRYRUN_LAYERS``).  Writes the records as JSON."""
+    sys.path.insert(0, src)
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+
+    torch_cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), num_layers=MESH_LAYERS)
+    t = MESH_TRAIN
+    shape = dataclasses.replace(configs.SHAPES["train_4k"], seq_len=t["seq_len"],
+                                global_batch=t["global_batch"])
+    recs = {"mesh": dryrun.run_cell(TRAIN_ARCH, "train_4k", "single", verbose=False,
+                                    cfg=torch_cfg, shape=shape,
+                                    mesh_dims=(MESH_SHAPE, ("data", "model")))}
+    for kind in ("single", "multi"):
+        recs[kind] = dryrun.run_cell(TRAIN_ARCH, "train_4k", kind, verbose=False,
+                                     layers=DRYRUN_LAYERS)
+    with open(out, "w") as f:
+        json.dump(recs, f)
+
+
+def phase_dryrun(torch, args, mesh_run=None) -> dict:
+    """[dryrun]: ``dryrun_cells`` in a spawned process (a fake process
+    group of its own; it needs no card), joined or killed here.  With
+    ``mesh_run`` (``phase_mesh``'s result), the 2x2 record's micro-step
+    collectives must equal ``[mesh comm]``'s measured counts and bytes on
+    every rank, and its predicted peak is printed beside the measured
+    training peak."""
+    import multiprocessing as mp
+    import tempfile
+
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    out = os.path.join(tempfile.mkdtemp(prefix="dryrun_", dir=root), "cells.json")
+    proc = mp.get_context("spawn").Process(target=dryrun_cells, args=(args.src, out))
+    t0 = time.perf_counter()
+    proc.start()
+    try:
+        proc.join(DRYRUN_JOIN_SECONDS)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+    secs = time.perf_counter() - t0
+    if proc.exitcode != 0:
+        raise AssertionError(f"[dryrun] exited {proc.exitcode} after {secs:.1f} s")
+    with open(out) as f:
+        recs = json.load(f)
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    mesh = recs["mesh"]
+    micro = mesh["micro_step"]
+    log(f"[dryrun] {TRAIN_ARCH} at {MESH_LAYERS} layers on a fake 2x2 (data, model) group, "
+        f"[mesh train]'s step traced on fake tensors in {mesh['trace_s']} s: a micro-step's "
+        f"collectives {micro['collective_counts']}, bytes a rank sends "
+        f"{micro['collective_bytes']}; arguments {mesh['memory']['argument_size_in_bytes']} "
+        f"bytes a rank, predicted peak {mesh['memory']['peak_live_bytes']} bytes "
+        f"({mesh['memory']['peak_live_bytes'] / 2**30:.2f} GiB); {mesh['cost']['flops']:.6g} "
+        f"FLOPs a rank a step ({mesh['n_micro']} micro-steps, one traced)")
+    if mesh_run is not None:
+        measured = [r["train"]["peak"] for r in mesh_run["ranks"]]
+        for r in mesh_run["ranks"]:
+            got = (r["comm"]["counts"], r["comm"]["sent"])
+            if got != (micro["collective_counts"], micro["collective_bytes"]):
+                raise AssertionError(f"[dryrun] rank {r['rank']}'s measured micro-step "
+                                     f"collectives {got} differ from the dry-run's "
+                                     f"{micro['collective_counts']}, {micro['collective_bytes']}")
+        log(f"[dryrun] == [mesh comm]'s measured counts and bytes on every rank; predicted peak "
+            f"{mesh['memory']['peak_live_bytes'] / 2**30:.2f} GiB a rank against the measured "
+            f"{[round(x / 2**30, 2) for x in measured]} GiB in [mesh train]")
+    for kind in ("single", "multi"):
+        r = recs[kind]
+        log(f"[dryrun] {TRAIN_ARCH} x train_4k x {kind} ({r['n_devices']} ranks, fake group; "
+            f"traced at {r['layers_traced']} layers, extrapolated to all 40): "
+            f"arguments {r['memory']['argument_size_in_bytes']} bytes a rank, peak "
+            f"{r['memory']['peak_live_bytes']} ({r['memory']['peak_live_bytes'] / 2**30:.2f} "
+            f"GiB), {r['cost']['flops']:.6g} FLOPs a rank a step ({r['n_micro']} micro-steps, "
+            f"one traced), collectives {r['collective_counts']}, bytes a rank sends "
+            f"{r['collective_bytes']}; traced in {r['trace_s']} s")
+    log(f"[dryrun] phase wall {secs:.1f} s with the process's start-up")
+    return {"seconds": secs, "cells": recs}
 
 
 # ----------------------------------------------------------------------
@@ -4001,9 +4279,10 @@ def main() -> int:
     ap.add_argument("--variant-path", choices=("int32", "f32"),
                     help="only time this variant's sites and run_batched on it")
     ap.add_argument("--k", type=int, default=5120, help="--variant-path's contraction depth")
-    ap.add_argument("--only", choices=("train", "mesh", "staging"),
-                    help="run only [train]'s launcher steps, only the mesh phases, or only the "
-                         "staging comparison, and print one JSON line")
+    ap.add_argument("--only", choices=("train", "mesh", "staging", "dryrun"),
+                    help="run only [train]'s launcher steps, only the mesh phases (and the "
+                         "dry-run against them), only the staging comparison or only the "
+                         "dry-run, and print one JSON line")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
 
@@ -4038,36 +4317,53 @@ def main() -> int:
         return 0
     if args.only == "mesh":
         run = phase_mesh(torch, K, None, args)
+        dry = phase_dryrun(torch, args, run)
         print(json.dumps({"seconds": run["seconds"], "nccl": run["nccl"],
                           "ranks": [{k: v for k, v in r.items() if k != "lines"}
-                                    for r in run["ranks"]], "device": smi}))
+                                    for r in run["ranks"]], "dryrun": dry, "device": smi}))
+        return 0
+    if args.only == "dryrun":
+        print(json.dumps({"dryrun": phase_dryrun(torch, args), "device": smi}))
         return 0
     if args.only == "staging":
         print(json.dumps({"ms": phase_staging(), "device": smi}))
         return 0
 
     t0 = time.perf_counter()
-    phase_build(K)
-    phase_kernels(torch, K, ref, args.seed)
-    main_run = phase_main(torch, K, protocol, layers, planner, constructions, args)
-    f32_run = phase_f32(torch, K, protocol, planner, constructions, args)
-    edge_run = phase_edge(torch, K, protocol, planner, constructions, runtime, scheduler, args)
-    serve_run = phase_serve(torch, K, serve, runtime, constructions, layers, gf, protocol,
-                            scheduler, args)
-    crt_run = phase_crt(torch, K, layers, protocol, planner, constructions, gf, ops, args)
-    fuzz_run = phase_fuzz(K, fuzz, args)
-    model_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args)
-    moe_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args,
-                          tag="moe")
-    vlm_run = phase_model(torch, K, ref, ops, serve, layers, gf, protocol, scheduler, args,
-                          tag="vlm")
-    encdec_run = phase_encdec(torch, args)
-    xlstm_run = phase_recurrent(torch, K, "xlstm")
-    zamba_run = phase_recurrent(torch, K, "zamba")
-    sharded_run = phase_sharded(torch, K, ref, protocol, distributed, planner, constructions,
-                                runtime, serve, scheduler, layers, gf, args)
-    train_run = phase_train(torch, K)
-    mesh_run = phase_mesh(torch, K, train_run["steps"][0]["loss"], args)
+    walls = {}
+
+    def timed_phase(name, fn, *a, **kw):
+        # each phase's wall, for PERF.md's account of where the time goes
+        w0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[name] = round(time.perf_counter() - w0, 1)
+        log(f"[time] {name} {walls[name]} s (script at {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    timed_phase("build", phase_build, K)
+    timed_phase("kernels", phase_kernels, torch, K, ref, args.seed)
+    timed_phase("wgmma_masked", time_wgmma_masked, torch, K, ref, args)
+    main_run = timed_phase("main", phase_main, torch, K, protocol, layers, planner, constructions,
+                           args)
+    f32_run = timed_phase("f32", phase_f32, torch, K, protocol, planner, constructions, args)
+    edge_run = timed_phase("edge", phase_edge, torch, K, protocol, planner, constructions,
+                           runtime, scheduler, args)
+    serve_run = timed_phase("serve", phase_serve, torch, K, serve, runtime, constructions, layers,
+                            gf, protocol, scheduler, args)
+    crt_run = timed_phase("crt", phase_crt, torch, K, layers, protocol, planner, constructions, gf,
+                          ops, args)
+    fuzz_run = timed_phase("fuzz", phase_fuzz, K, fuzz, args)
+    model_run, moe_run, vlm_run = (
+        timed_phase(tag, phase_model, torch, K, ref, ops, serve, layers, gf, protocol, scheduler,
+                    args, tag=tag) for tag in ("model", "moe", "vlm"))
+    encdec_run = timed_phase("encdec", phase_encdec, torch, args)
+    xlstm_run = timed_phase("xlstm", phase_recurrent, torch, K, "xlstm")
+    zamba_run = timed_phase("zamba", phase_recurrent, torch, K, "zamba")
+    sharded_run = timed_phase("sharded", phase_sharded, torch, K, ref, protocol, distributed,
+                              planner, constructions, runtime, serve, scheduler, layers, gf, args)
+    train_run = timed_phase("train", phase_train, torch, K)
+    mesh_run = timed_phase("mesh", phase_mesh, torch, K, train_run["steps"][0]["loss"], args)
+    dryrun_run = timed_phase("dryrun", phase_dryrun, torch, args, mesh_run)
     entries = site_entries(torch, K, ref, main_run, "int32", args)
     entries += site_entries(torch, K, ref, f32_run, "f32", args)
     entries += edge_entries(torch, K, ref, edge_run, args)
@@ -4097,7 +4393,8 @@ def main() -> int:
         f"{xlstm_run['peak']} bytes; zamba peak {zamba_run['peak']} bytes; sharded peak "
         f"{max(sharded_run['peaks'].values())} bytes; train peak {train_run['peak']} bytes, "
         f"step {train_run['step_ms']:.3f} ms, phase {train_run['phase_s']:.1f} s; mesh phase "
-        f"{mesh_run['seconds']:.1f} s")
+        f"{mesh_run['seconds']:.1f} s; dryrun phase {dryrun_run['seconds']:.1f} s; phase walls "
+        f"{walls}")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({

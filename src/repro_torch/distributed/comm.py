@@ -12,8 +12,9 @@ ring-wise over its group of g: an all-gather (g-1) x its input, a
 reduce-scatter (g-1)/g x its input, an all-reduce 2(g-1)/g x its input.
 
 ``design_collectives`` is what one micro-step of the sharded train step
-(``launch.steps.build_train_step`` on a ``(data, model)`` mesh) should
-run, derived from ``param_pspecs`` and the activation rules alone.
+(``launch.steps.build_train_step`` on a ``(data, model)`` or ``(pod,
+data, model)`` mesh) should run, derived from ``param_pspecs`` and the
+activation rules alone.
 """
 from __future__ import annotations
 
@@ -99,8 +100,9 @@ class CollectiveLog(TorchDispatchMode):
 def design_collectives(cfg, sizes: Dict[str, int], micro_rows: int, seq: int) -> dict:
     """The collectives of one micro-step (forward, the remat forward,
     backward, and every gradient onto its parameter's layout) of the
-    sharded train step on a ``(data, model)`` mesh of ``sizes``, for
-    ``micro_rows`` global rows of ``seq`` tokens, from the spec tables:
+    sharded train step on a ``(data, model)`` or ``(pod, data, model)``
+    mesh of ``sizes``, for ``micro_rows`` global rows of ``seq`` tokens,
+    from the spec tables:
 
     * all-gather over ``data`` (FSDP): each layer leaf whose spec shards
       a dim over ``data``, before its block and again in the block's
@@ -110,20 +112,25 @@ def design_collectives(cfg, sizes: Dict[str, int], micro_rows: int, seq: int) ->
     * reduce-scatter over ``data``: each gathered use's gradient back to
       the shard; a rank's input is the gradient of what it gathered
       (its ``model`` shard, the vocab rows for the lookup);
-    * all-reduce over ``model``, of a rank's [rows/data, seq, d]
+    * all-reduce over ``model``, of a rank's [rows/(pod data), seq, d]
       activations in the compute dtype: per layer the attention and MLP
       outputs (row-parallel; and in the recomputation) and their
       inputs' gradients (column-parallel); the lookup's pending sum over
       the vocab rows (float32); the cross-entropy's max, sum of
-      exponentials and label logit over the vocab ([rows/data x seq]
-      float32, in its forward and its recomputation); its input's
+      exponentials and label logit over the vocab ([rows/(pod data) x
+      seq] float32, in its forward and its recomputation); its input's
       gradient; over ``data``: the loss and its token count (one
-      reduction), and each replicated leaf's gradient (float32)."""
+      reduction), and each replicated leaf's gradient (float32);
+    * the ``pod`` term, on a ``(pod, data, model)`` mesh, where the batch
+      is split over both data axes and the parameters are whole over
+      ``pod``: after each reduce-scatter its shard's all-reduce over
+      ``pod``, and the loss and each replicated leaf's gradient reduced
+      over ``pod`` too (each such reduction one all-reduce a mesh dim)."""
     from ..models import registry
     from ..models.common import iter_leaves
 
-    if set(sizes) != {"data", "model"}:
-        raise ValueError(f"the design is for a (data, model) mesh, not {sizes}")
+    if set(sizes) not in ({"data", "model"}, {"pod", "data", "model"}):
+        raise ValueError(f"the design is for a (data, model) or (pod, data, model) mesh, not {sizes}")
     abstract = registry.params_abstract(cfg)
     infos = dict(iter_leaves(abstract))
     specs = dict(iter_leaves(param_pspecs(abstract, sizes)))
@@ -131,7 +138,7 @@ def design_collectives(cfg, sizes: Dict[str, int], micro_rows: int, seq: int) ->
     def on(spec, axis):
         return any(a == axis or (isinstance(a, tuple) and axis in a) for a in spec)
 
-    gd, gm = sizes["data"], sizes["model"]
+    gp, gd, gm = sizes.get("pod", 1), sizes["data"], sizes["model"]
     remat = 1 if cfg.remat_policy in ("full", "dots") else 0
     n_layers = cfg.num_layers
     layer = [n for n in specs if n.startswith("layers.") and on(specs[n], "data")]
@@ -141,13 +148,17 @@ def design_collectives(cfg, sizes: Dict[str, int], micro_rows: int, seq: int) ->
         s for a, s in sizes.items() if on(specs[n], a)) for n in specs}
     replicated = [n for n in specs if specs[n] == ()]
     gathered = n_layers * sum(shard[n] // n_layers for n in layer)
-    tokens = micro_rows // gd * seq
+    tokens = micro_rows // (gp * gd) * seq
     act = tokens * cfg.d_model
     cb = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
     # (input bytes, group size) of each all-reduce
     reduces = ([(act * cb, gm)] * (n_layers * (4 + 2 * remat)) + [(act * 4, gm)]
                + [(tokens * 4, gm)] * 6 + [(act * cb, gm)] + [(8, gd)]
                + [(math.prod(infos[n].shape) * 4, gd) for n in replicated])
+    if gp > 1:
+        reduces += ([(shard[n] // n_layers, gp) for n in layer for _ in range(n_layers)]
+                    + [(shard[n], gp) for n in top for _ in range(uses[n])] + [(8, gp)]
+                    + [(math.prod(infos[n].shape) * 4, gp) for n in replicated])
     return {
         "counts": {"all_gather": n_layers * len(layer) * (1 + remat) + sum(uses.values()),
                    "reduce_scatter": n_layers * len(layer) + sum(uses.values()),

@@ -32,7 +32,7 @@ import types
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from ..launch.mesh import mesh_shape
 
@@ -248,6 +248,48 @@ _TRAILING = {
 }
 
 
+def _cache_leaf_spec(name: str, shape, sizes: Dict[str, int], sub: Dict[str, Any],
+                     mla: bool = False) -> Spec:
+    """The spec of one cache leaf named ``name`` (its last path
+    component) of ``shape``: ``_TRAILING``'s logical axes on its trailing
+    dims, ``sub`` mapping them to mesh axes."""
+    if name == "idx" or name == "enc_len" or len(shape) == 0:
+        return ()
+    # mla latent cache: family-specific "c"
+    if name == "c" and mla and len(shape) >= 3:
+        trail = ("batch", "seq", None)
+    else:
+        trail = None
+        for r in range(len(shape), 0, -1):
+            if (name, r) in _TRAILING:
+                trail = _TRAILING[(name, r)]
+                break
+        if trail is None:
+            return ()
+    lead = (None,) * (len(shape) - len(trail))
+    names = [
+        _fits(dim, sub.get(ax) if isinstance(ax, str) else ax, sizes)
+        for dim, ax in zip(shape[len(lead):], trail)
+    ]
+    # KV caches dominate decode memory.  If the heads dim could not
+    # take the model axis (kv heads not divisible by it), shard the
+    # SEQ dim over "model" instead.
+    used = {n for n in names if isinstance(n, str)} | {
+        a for n in names if isinstance(n, tuple) for a in n
+    }
+    if "model" not in used and "seq" in trail:
+        si = trail.index("seq")
+        dim = shape[len(lead) + si]
+        cur = names[si]
+        cand = (
+            ("model",) if cur is None
+            else (cur + ("model",) if isinstance(cur, tuple) else (cur, "model"))
+        )
+        if _fits(dim, cand, sizes) is not None:
+            names[si] = cand if len(cand) > 1 else "model"
+    return lead + tuple(names)
+
+
 def cache_pspecs(cfg, cache_abstract: Any, mesh, long_context: bool = False) -> Any:
     """Spec tree mirroring a cache tree.  ``long_context`` switches to
     context parallelism: seq over data, batch replicated."""
@@ -258,46 +300,20 @@ def cache_pspecs(cfg, cache_abstract: Any, mesh, long_context: bool = False) -> 
         "seq": b_ax if long_context else None,
         "model": "model",
     }
+    return map_tree(lambda path, s: _cache_leaf_spec(path.rsplit(".", 1)[-1], tuple(s.shape),
+                                                     sizes, sub, cfg.mla is not None),
+                    cache_abstract)
 
-    def spec(path: str, s) -> Spec:
-        name = path.rsplit(".", 1)[-1]
-        if name == "idx" or name == "enc_len" or len(s.shape) == 0:
-            return ()
-        # mla latent cache: family-specific "c"
-        if name == "c" and cfg.mla is not None and len(s.shape) >= 3:
-            trail = ("batch", "seq", None)
-        else:
-            trail = None
-            for r in range(len(s.shape), 0, -1):
-                if (name, r) in _TRAILING:
-                    trail = _TRAILING[(name, r)]
-                    break
-            if trail is None:
-                return ()
-        lead = (None,) * (len(s.shape) - len(trail))
-        names = [
-            _fits(dim, sub.get(ax) if isinstance(ax, str) else ax, sizes)
-            for dim, ax in zip(s.shape[len(lead):], trail)
-        ]
-        # KV caches dominate decode memory.  If the heads dim could not
-        # take the model axis (kv heads not divisible by it), shard the
-        # SEQ dim over "model" instead.
-        used = {n for n in names if isinstance(n, str)} | {
-            a for n in names if isinstance(n, tuple) for a in n
-        }
-        if "model" not in used and "seq" in trail:
-            si = trail.index("seq")
-            dim = s.shape[len(lead) + si]
-            cur = names[si]
-            cand = (
-                ("model",) if cur is None
-                else (cur + ("model",) if isinstance(cur, tuple) else (cur, "model"))
-            )
-            if _fits(dim, cand, sizes) is not None:
-                names[si] = cand if len(cand) > 1 else "model"
-        return lead + tuple(names)
 
-    return map_tree(spec, cache_abstract)
+def state_placements(name: str, shape) -> tuple:
+    """Under activation rules, the placements ``cache_pspecs`` gives a
+    recurrent state leaf ``name`` of one layer's ``shape`` (a prefill
+    makes its states without reading the caches, so their layout comes
+    from the same table)."""
+    rules = current_rules()
+    mesh = rules["mesh"]
+    sub = {"batch": rules["batch"], "seq": rules["seq"], "model": "model"}
+    return placements(_cache_leaf_spec(name, tuple(shape), mesh_shape(mesh), sub), mesh)
 
 
 def cache_shardings(cfg, cache_abstract, mesh, long_context=False):
@@ -326,9 +342,170 @@ def gather_fsdp(tree):
         want = list(x.placements)
         for i in dims:
             want[i] = Replicate()
-        return x.redistribute(mesh, tuple(want))
+        return _GatherFSDP.apply(x, mesh, tuple(want))
 
     return map_tree(gather, tree) if isinstance(tree, dict) else gather("", tree)
+
+
+class _GatherFSDP(torch.autograd.Function):
+    """``x.redistribute(mesh, want)`` (the FSDP all-gather) whose gradient
+    goes back to ``x``'s layout ``data`` first: the reduce-scatter onto
+    the shard, then (a ``pod`` mesh's batch split) the shard's all-reduce
+    over ``pod``, whatever order DTensor would pick."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.placements = mesh, tuple(x.placements)
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        names = ctx.mesh.mesh_dim_names
+        first = tuple(ctx.placements[i] if names[i] == "data" else p
+                      for i, p in enumerate(g.placements))
+        for step in (first, ctx.placements):
+            if tuple(g.placements) != step:
+                g = g.redistribute(ctx.mesh, step)
+        return g, None, None
+
+
+# ----------------------------------------------------------------------
+# recurrent blocks on each rank's rows
+# ----------------------------------------------------------------------
+# A recurrent block (mLSTM, sLSTM, Mamba2) runs on local tensors: each
+# rank takes its own batch rows (the residual stream's layout) and the
+# weights it needs whole, and computes either every head (replicated
+# over ``model``) or its own heads (head-parallel, ``split``), where the
+# outputs meet in one all-reduce.  The fused projections' splits
+# (Mamba2's [z | x | B | C | dt], xLSTM's [x | z]) do not fall on the
+# shard boundaries, so no DTensor rule can take them apart.
+def model_dim(mesh) -> Optional[int]:
+    names = list(mesh.mesh_dim_names)
+    return names.index("model") if "model" in names else None
+
+
+def rows_placements(x: DTensor) -> tuple:
+    """The layout of a rank's own rows: ``x``'s batch shards kept, every
+    other mesh dim whole."""
+    return tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+
+
+def wrap_local(t: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """A rank's local ``t`` as a DTensor of global ``shape`` (contiguous)
+    on ``placements``, with no communication."""
+    shape = torch.Size(shape)
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _on_model(pls, mesh, placement) -> tuple:
+    mi = model_dim(mesh)
+    return tuple(placement if i == mi else p for i, p in enumerate(pls))
+
+
+def local_rows(x: DTensor, split: bool = False) -> torch.Tensor:
+    """``x`` [B, ...] as this rank's rows, whole on every other dim (an
+    all-gather or all-reduce where it is not).  Its gradient: the rows',
+    partial over ``model`` when ``split`` (each model rank's heads
+    contribute part of it)."""
+    rows = rows_placements(x)
+    mesh = x.device_mesh
+    if tuple(x.placements) != rows:
+        x = _Constrain.apply(x, mesh, rows) if any(p.is_partial() for p in x.placements) \
+            else x.redistribute(mesh, rows)
+    return x.to_local(grad_placements=_on_model(rows, mesh, Partial()) if split else rows)
+
+
+def local_whole(w: DTensor, rows, split: bool = False) -> torch.Tensor:
+    """A weight ``w`` whole on this rank (gathered over every mesh dim
+    that shards it).  Its gradient is partial over the dims that split
+    the rows (the batch) and, when ``split``, over ``model``; a
+    reduce-scatter (or all-reduce) puts it back on ``w``'s layout."""
+    mesh = w.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    if tuple(w.placements) != whole:
+        w = w.redistribute(mesh, whole)
+    grads = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    return w.to_local(grad_placements=_on_model(grads, mesh, Partial()) if split else grads)
+
+
+def local_shard(w: DTensor, rows) -> torch.Tensor:
+    """A weight gathered over the data axes (``gather_fsdp``) as its
+    local ``model`` shard: its gradient partial over the batch dims."""
+    mesh = w.device_mesh
+    grads = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    return w.to_local(grad_placements=_on_model(grads, mesh, w.placements[model_dim(mesh)]))
+
+
+def reduce_over_model(t: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """The sum over the ``model`` ranks of a local ``t`` (one all-reduce;
+    its gradient is the gradient's all-reduce): a statistic of a
+    head-parallel block over every head, as a norm over the whole
+    hidden dim needs it."""
+    mesh = like.device_mesh
+    rows = rows_placements(like)
+    pend = _on_model(rows, mesh, Partial())
+    x = wrap_local(t, mesh, pend, (like.shape[0],) + tuple(t.shape[1:]))
+    return _Constrain.apply(x, mesh, rows).to_local(grad_placements=pend)
+
+
+def from_rows(t: torch.Tensor, like: DTensor, partial: bool = False) -> DTensor:
+    """A rank's rows ``t`` [b, ...] as a DTensor in ``like``'s rows
+    layout (a pending sum over ``model`` when ``partial``)."""
+    mesh = like.device_mesh
+    rows = rows_placements(like)
+    return wrap_local(t, mesh, _on_model(rows, mesh, Partial()) if partial else rows,
+                      (like.shape[0],) + tuple(t.shape[1:]))
+
+
+def state_from_rows(name: str, t: torch.Tensor, like: DTensor, heads: int = 0) -> DTensor:
+    """A recurrent state made from a rank's rows, on the layout
+    ``state_placements`` gives it: whole over ``model`` (the local slice
+    of its shard is taken, no communication), or, with ``heads``, already
+    this rank's shard of its dim 1 of ``heads`` heads."""
+    mesh = like.device_mesh
+    rows = rows_placements(like)
+    dims = [like.shape[0]] + list(t.shape[1:])
+    if heads:
+        dims[1] = heads
+        rows = _on_model(rows, mesh, Shard(1))
+    x = wrap_local(t, mesh, rows, dims)
+    want = state_placements(name, x.shape)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def state_rows(c, like: DTensor, split: bool = False) -> torch.Tensor:
+    """A cache state ``c`` [B, ...] as this rank's rows of ``like``, whole
+    over ``model`` (with ``split``, this rank's shard of its dim 1, its
+    heads); a plain tensor as it is."""
+    if not _is_dtensor(c):
+        return c
+    want = rows_placements(like)
+    if split:
+        want = _on_model(want, like.device_mesh, Shard(1))
+    if tuple(c.placements) != want:
+        c = c.redistribute(c.device_mesh, want)
+    return c.to_local()
+
+
+def run_on_rows(fn, p, x: DTensor, cache=None):
+    """``fn(p, x, cache)`` (a recurrent block on plain tensors: an output,
+    or an output and its state dict) on this rank's rows with every
+    weight whole and the cache's states whole over ``model``: the block
+    replicated over ``model``, so no step of its recurrence needs a
+    collective.  Returns the output in ``x``'s rows layout and the
+    states on their cache layout."""
+    rows = rows_placements(x)
+    mesh = x.device_mesh
+    pl = map_tree(lambda _, w: local_whole(w, rows) if _is_dtensor(w) else w, p)
+    cl = None
+    if cache is not None:
+        cl = map_tree(lambda _, c: state_rows(c, x), cache)
+    out = fn(pl, local_rows(x), cl)
+    if not isinstance(out, tuple):
+        return from_rows(out, x)
+    y, state = out
+    return from_rows(y, x), {k: state_from_rows(k, v, x) for k, v in state.items()}
 
 
 # ----------------------------------------------------------------------

@@ -27,8 +27,8 @@ its shards, so the port runs the bundles: ROADMAP C14.)  With
 ``--private-head`` on a mesh the trunk's ``hidden_step`` runs under the
 decode bundle's rules, and every rank gathers the head and runs the
 same ``ServingEngine`` from the same seed, so the tokens and the summary
-are the one-device run's.  Rank 0 prints.  The dense and moe families
-run on a mesh; the others raise there (ROADMAP 13c).  The ported families: dense; moe (DBRX's GQA trunk,
+are the one-device run's.  Rank 0 prints.  Every family runs on a mesh.
+The ported families: dense; moe (DBRX's GQA trunk,
 DeepSeek-V2's MLA trunk with its dense first layer); vlm (InternVL2's
 decoder; the launcher, as the reference's, passes no patches); and
 encdec.  An encoder-decoder's prefill encodes ``--prompt-len`` frames
@@ -54,7 +54,7 @@ import torch.distributed as dist
 
 from ..configs import SHAPES, get_config, reduced as reduce_cfg
 from ..core.protocol import resolve_device
-from ..models import build_model
+from ..models import build_model, registry
 from .mesh import describe, distributed_launch, init_from_env, mesh_from_flag
 
 ONE_DEVICE_MESHES = ("elastic", "1x1")
@@ -101,10 +101,6 @@ def main(argv=None):
     max_len = args.prompt_len + args.gen_len
     mesh = None
     if distributed_launch():
-        from .steps import SHARDED_FAMILIES
-
-        if cfg.family not in SHARDED_FAMILIES:
-            raise NotImplementedError(f"{args.arch}: the {cfg.family} family on a mesh is ROADMAP 13c")
         device = init_from_env(args.device)
         mesh = mesh_from_flag(args.mesh, device.type)
         where = describe(mesh)
@@ -173,7 +169,8 @@ class _Steps:
         pre = dataclasses.replace(SHAPES["prefill_32k"], seq_len=max_len, global_batch=batch)
         self._prefill = build_prefill_step(model, mesh, pre)
         self._decode = build_decode_step(model, mesh, dec)
-        self._hidden = build_decode_step(model, mesh, dec, hidden=True)
+        self._hidden = (build_decode_step(model, mesh, dec, hidden=True)
+                        if registry.has_split_head(model.cfg) else None)
 
     def prefill(self, batch, cache):
         if self.mesh is None:

@@ -19,8 +19,12 @@ reduce-scatter back to its shard.  A plain tensor that meets a DTensor
 counts as replicated (``implicit_replication``: positions, masks).  The
 bundle is SPMD: every rank of the mesh calls it with the same global
 inputs, places its own shards (``place``: local slices, no
-communication), and gets the results as DTensors.  There is no
-compiler to lower to: ``StepBundle.lower`` raises (ROADMAP 13c).
+communication), and gets the results as DTensors.  Every family runs
+on a mesh (the recurrent blocks on each rank's rows, ``sharding.run_on_rows``
+and ``ssm._mamba_sharded``), on ``(data, model)`` or ``(pod, data,
+model)``: the batch over the data axes, FSDP over ``data`` alone.  There
+is no compiler to lower to: ``StepBundle.lower`` traces rank 0's step on
+fake tensors instead (``launch.dryrun``) and returns its record.
 """
 from __future__ import annotations
 
@@ -163,19 +167,14 @@ def build_train_step(
         leaves = [p for _, p in iter_leaves(params)]
         for p in leaves:
             p.grad = None
-        rows = {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in batch.items()}
-        b = next(iter(rows.values())).shape[0] // n_micro
+        rows = {k: torch.as_tensor(v) for k, v in batch.items()}
         loss_sum = aux_sum = 0.0
         with sharded(rules):
             for i in range(n_micro):
-                mb = place({k: v[i * b:(i + 1) * b] for k, v in rows.items()}, b_sh, mesh)
-                loss, metrics = registry.loss(cfg, params, mb)
-                loss.backward()
-                loss_sum = loss_sum + loss.detach()
-                aux_sum = aux_sum + metrics["aux"].detach()
-            with torch.no_grad():
-                for p in leaves:
-                    p.grad = _as_placed(p.grad, p).div_(n_micro)
+                loss, aux = micro_step(cfg, params, micro_batch(rows, i, n_micro, b_sh, mesh))
+                loss_sum = loss_sum + loss
+                aux_sum = aux_sum + aux
+            place_grads(leaves, n_micro)
             grads = map_tree(lambda _, p: p.grad, params)
             params, opt_state, om = adamw_update(grads, opt_state, params, opt_cfg)
         for p in leaves:
@@ -194,7 +193,35 @@ def build_train_step(
         mesh=mesh,
         n_micro=n_micro,
         opt_cfg=opt_cfg,
+        cfg=cfg,
+        kind="train",
     )
+
+
+def micro_batch(rows: Dict[str, torch.Tensor], i: int, n_micro: int, b_sh, mesh):
+    """Micro-step ``i``'s rows of the global batch ``rows`` (the global
+    rows ``[i b, (i + 1) b)``, as the reference's reshape makes them),
+    each rank placing its own data shard of them."""
+    b = next(iter(rows.values())).shape[0] // n_micro
+    return place({k: v[i * b:(i + 1) * b] for k, v in rows.items()}, b_sh, mesh)
+
+
+def micro_step(cfg, params, mb):
+    """One micro-step under the activation rules: ``registry.loss`` and
+    its backward, each gradient accumulating in its parameter's ``.grad``
+    (an FSDP shard's already reduce-scattered).  Returns (loss, aux),
+    detached."""
+    loss, metrics = registry.loss(cfg, params, mb)
+    loss.backward()
+    return loss.detach(), metrics["aux"].detach()
+
+
+def place_grads(leaves, n_micro: int) -> None:
+    """Every parameter's summed gradient on its own layout (the pending
+    sums of a replicated leaf reduced), divided by ``n_micro``."""
+    with torch.no_grad():
+        for p in leaves:
+            p.grad = _as_placed(p.grad, p).div_(n_micro)
 
 
 # ----------------------------------------------------------------------
@@ -266,6 +293,8 @@ class StepBundle:
     n_micro: int = 1
     opt_cfg: Optional[AdamWConfig] = None
     placed_args: Tuple[int, ...] = (0, 1)
+    cfg: Any = None
+    kind: str = "train"
 
     def __call__(self, *args):
         args = tuple(
@@ -277,27 +306,20 @@ class StepBundle:
     def jit(self):
         return self
 
-    def lower(self):
-        raise NotImplementedError(
-            "StepBundle.lower: a torch step has no XLA program to lower; the dry-run's "
-            "torch form is ROADMAP 13c"
-        )
+    def lower(self) -> dict:
+        """The bundle's dry-run record (``launch.dryrun.trace_bundle``):
+        rank 0's step traced on fake tensors, nothing allocated, with its
+        argument bytes, peak live bytes, FLOPs and collectives.  The torch
+        form of the reference's ``lower()``: there is no XLA program, so
+        the record takes the place of ``lower().compile()``'s analyses."""
+        from .dryrun import trace_bundle
+
+        return trace_bundle(self)
 
 
 # ----------------------------------------------------------------------
 # serving bundles
 # ----------------------------------------------------------------------
-SHARDED_FAMILIES = ("dense", "moe")
-
-
-def _sharded_family(model) -> None:
-    if model.cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"{model.cfg.name}: the {model.cfg.family} family has no tested DTensor path; "
-            f"a mesh serves {' and '.join(SHARDED_FAMILIES)} (the others are ROADMAP 13c)"
-        )
-
-
 def _token_placements(mesh, long_ctx: bool, rank: int):
     b_ax = None if long_ctx else batch_axis(mesh)
     return placements((b_ax,) + (None,) * (rank - 1), mesh)
@@ -310,9 +332,13 @@ def build_decode_step(model: registry.Model, mesh, shape: ShapeConfig, fsdp: boo
     Long context (``global_batch`` below the data axis): the caches'
     seq dim over ``data``, the batch replicated, as the reference's.
     ``hidden``: the step stops at the final-normed hidden state
-    (``hidden_step``, the private head's split point)."""
-    _sharded_family(model)
+    (``hidden_step``, the private head's split point; the decoders
+    only).  Every family: a decoder's KV or MLA caches, an
+    encoder-decoder's self-attention caches beside its ``enc_out``, the
+    recurrent states of xLSTM and Zamba2 (heads over ``model``)."""
     cfg = model.cfg
+    if hidden and not registry.has_split_head(cfg):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family has no hidden_step")
     b = shape.global_batch
     long_ctx = b < mesh_shape(mesh).get("data", 1)
     rules = activation_rules(mesh, long_context=long_ctx)
@@ -320,9 +346,10 @@ def build_decode_step(model: registry.Model, mesh, shape: ShapeConfig, fsdp: boo
     def serve_step(params, caches, tokens, positions):
         from ..models import lm
 
-        step = lm.decoder_hidden_step if hidden else lm.decoder_decode_step
+        step = lm.decoder_hidden_step if hidden else registry.decode_step
         with sharded(rules), torch.no_grad():
-            return step(cfg, params, tokens, caches, positions)
+            out, new = step(cfg, params, tokens, caches, positions)
+        return out, place(new, c_sh, mesh)
 
     cache_abs = model.cache_abstract(b, shape.seq_len)
     p_sh = param_shardings(model.abstract_params(), mesh, fsdp)
@@ -338,14 +365,16 @@ def build_decode_step(model: registry.Model, mesh, shape: ShapeConfig, fsdp: boo
         donate_argnums=(1,),
         mesh=mesh,
         placed_args=(0, 1, 2, 3),
+        cfg=cfg,
+        kind="decode",
     )
 
 
 def build_prefill_step(model: registry.Model, mesh, shape: ShapeConfig, fsdp: bool = True) -> StepBundle:
     """``fn(params, batch, caches) -> (last logits, caches)``: the prompt
     written into the caches, batch over the data axes (which must divide
-    it, as a ``jit`` argument sharded over them must)."""
-    _sharded_family(model)
+    it, as a ``jit`` argument sharded over them must).  Every family
+    (``registry.prefill``)."""
     cfg = model.cfg
     b = shape.global_batch
     if b % _dp(mesh):
@@ -353,10 +382,9 @@ def build_prefill_step(model: registry.Model, mesh, shape: ShapeConfig, fsdp: bo
     rules = activation_rules(mesh)
 
     def prefill_step(params, batch, caches):
-        from ..models import lm
-
         with sharded(rules), torch.no_grad():
-            return lm.decoder_prefill(cfg, params, batch, caches)
+            logits, new = registry.prefill(cfg, params, batch, caches)
+        return logits, place(new, c_sh, mesh)
 
     batch_abs = model.batch_spec(shape)
     cache_abs = model.cache_abstract(b, shape.seq_len)
@@ -372,6 +400,8 @@ def build_prefill_step(model: registry.Model, mesh, shape: ShapeConfig, fsdp: bo
         donate_argnums=(2,),
         mesh=mesh,
         placed_args=(0, 1, 2),
+        cfg=cfg,
+        kind="prefill",
     )
 
 

@@ -29,9 +29,10 @@ bundle, and checkpointed whole (rank 0 writes; a checkpoint of any mesh
 or of one device resumes on any other).  Every rank builds each step's
 global batch, process 0 of 1 of ``SyntheticLM``'s contract as the
 reference's single controller does, and the bundle places its own data
-shard.  Rank 0 prints the reference's lines.  The families with a
-tested DTensor path are dense and moe; the others raise on a mesh
-(ROADMAP 13c).
+shard.  Rank 0 prints the reference's lines.  Every family trains on a
+mesh (the reference's launcher takes ``DxM`` alone; a ``(pod, data,
+model)`` mesh is ``launch.mesh.make_production_mesh(multi_pod=True)`` or
+``make_mesh`` with the bundles).
 """
 import argparse
 import dataclasses
@@ -47,7 +48,7 @@ from ..models import build_model
 from ..train.optimizer import adamw_init
 from .mesh import describe, distributed_launch, init_from_env, mesh_from_flag
 from .serve import ONE_DEVICE_MESHES, one_device_mesh
-from .steps import SHARDED_FAMILIES, build_train_step, restore_train_state
+from .steps import build_train_step, restore_train_state
 
 
 def main(argv=None):
@@ -75,8 +76,6 @@ def main(argv=None):
     schedule = args.schedule or ("wsd" if args.arch == "minicpm-2b" else "cosine")
     mesh = None
     if distributed_launch():
-        if cfg.family not in SHARDED_FAMILIES:
-            raise NotImplementedError(f"{args.arch}: the {cfg.family} family on a mesh is ROADMAP 13c")
         device = init_from_env(args.device)
         mesh = mesh_from_flag(args.mesh, device.type)
         where = describe(mesh)

@@ -277,15 +277,29 @@ def _cache_write(buf: torch.Tensor, slots: torch.Tensor, new: torch.Tensor) -> t
         new = new.redistribute(mesh, whole)
     if isinstance(slots, DTensor):
         slots = slots.full_tensor()
-    local = buf.to_local()
-    n = local.shape[1]
+    local, fresh = buf.to_local(), new.to_local()
+    n, tq = local.shape[1], slots.shape[0]
+    if n == buf.shape[1]:  # the sequence whole on this rank
+        local.index_copy_(1, slots, fresh)
+        return buf
     rank = 0  # this rank's block along the sequence, the outer mesh dim first
     for i, p in enumerate(buf.placements):
         if p.is_shard(1):
             rank = rank * mesh.mesh.shape[i] + mesh.get_local_rank(i)
     lo = rank * n
-    mine = (slots >= lo) & (slots < lo + n)
-    local.index_copy_(1, slots[mine] - lo, new.to_local()[:, mine])
+    along = (1, -1) + (1,) * (local.dim() - 2)  # a mask over dim 1
+    # no data-dependent shapes (the dry-run traces this on fake tensors)
+    if tq <= n:
+        # the tq consecutive slots fall on distinct rows mod n: the ones in
+        # this block take the new values, the others write their row back
+        pos = slots - lo
+        rows = pos.remainder(n)
+        mine = ((pos >= 0) & (pos < n)).view(along)
+        local.index_copy_(1, rows, torch.where(mine, fresh, local.index_select(1, rows)))
+    else:  # each row of the block from the slot that falls on it, if one does
+        k = lo + torch.arange(n, device=local.device) - slots[0]
+        hit = ((k >= 0) & (k < tq)).view(along)
+        local.copy_(torch.where(hit, fresh.index_select(1, k.clamp(0, tq - 1)), local))
     return buf
 
 

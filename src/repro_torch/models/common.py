@@ -226,9 +226,13 @@ def chunked_softmax_xent(
     Padded vocabulary columns get -1e30.  Exact, as the reference's."""
     b, t, d = x.shape
     n = b * t
-    chunk = min(chunk, n)
     xf = x.reshape(n, d)
     lf = labels.reshape(n)
+    chunks = None
+    if isinstance(xf, DTensor):  # each rank's own rows in chunks; one chunk not split
+        chunks = _local_chunks(xf, lf, chunk) if xf.to_local().shape[0] > chunk else [(xf, lf)]
+        chunk = n  # no padding: each rank's last chunk may be shorter
+    chunk = min(chunk, n)
     pad = (-n) % chunk
     if pad:
         xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
@@ -249,8 +253,8 @@ def chunked_softmax_xent(
 
     body = remat_wrap(body, "full")
     loss_sum = count = None
-    # one chunk is not split (a split of a batch-sharded DTensor gathers it)
-    chunks = zip(xf.split(chunk), lf.split(chunk)) if xf.shape[0] > chunk else [(xf, lf)]
+    if chunks is None:
+        chunks = zip(xf.split(chunk), lf.split(chunk)) if xf.shape[0] > chunk else [(xf, lf)]
     for xs, ls in chunks:
         s, c = body(xs, ls, head)
         loss_sum = s if loss_sum is None else loss_sum + s
@@ -258,6 +262,18 @@ def chunked_softmax_xent(
     if isinstance(loss_sum, DTensor):
         loss_sum, count = _reduced_together(loss_sum, count)
     return loss_sum / count.clamp_min(1.0)
+
+
+def _local_chunks(xf: DTensor, lf: DTensor, chunk: int):
+    """(hidden, labels) chunks of at most ``chunk`` of each rank's own rows
+    of the row-sharded ``xf`` [n, d] and ``lf`` [n] (the same rows on the
+    same rank): chunk j is every rank's j-th block, a DTensor of the same
+    layout.  The loss sums over the chunks are the same sums; a split of
+    the global rows would gather them."""
+    xl, ll = xf.to_local(), lf.to_local()
+    for j in range(0, xl.shape[0], chunk):
+        yield (DTensor.from_local(xl[j:j + chunk], xf.device_mesh, xf.placements),
+               DTensor.from_local(ll[j:j + chunk], lf.device_mesh, lf.placements))
 
 
 def _reduced_together(a: DTensor, b: DTensor):

@@ -133,7 +133,8 @@ def _combine(pairs: torch.Tensor, order: torch.Tensor, k: int) -> torch.Tensor:
 
 def _whole(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's full value as a plain tensor (the expert ids, for the
-    global counts: DTensor has no ``bincount`` rule); a tensor as it is."""
+    global counts: DTensor has no rule for counting them); a tensor as it
+    is."""
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
@@ -178,7 +179,9 @@ def moe_ffn(
 
     # load-balance aux loss (Switch-style, global statistics)
     me = probs.mean((0, 1))
-    ce = torch.bincount(_whole(eidx).reshape(-1), minlength=e).float() / (n * k)
+    ids = _whole(eidx).reshape(-1).long()  # a count of static shape (no bincount)
+    ce = torch.zeros(e, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids)).float() / (n * k)
     aux = m.router_aux_weight * e * torch.sum(me * ce)
 
     xl, gates, eidx = _local(xf), _local(gates), _local(eidx)

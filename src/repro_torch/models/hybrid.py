@@ -21,19 +21,29 @@ reference's remat units run under ``remat_wrap(cfg.remat_policy)``: an
 xLSTM group (its sLSTM block and the k-1 mLSTM blocks after it) and each
 Mamba2 layer.  Without gradients (serving) the wrapper calls them
 directly.
+
+On a mesh each block gathers its FSDP shards first (``gather_fsdp``;
+the shared block and the LoRA stacks once a forward, for all their
+invocations); the recurrent cores run on each rank's rows (``xlstm``,
+``ssm``); the shared block's attention, MLP and LoRA outputs are
+constrained to the residual stream's layout before they are added (one
+all-reduce each, an all-gather for the head-sharded LoRA term), as
+``lm._block_apply`` does; the cache stacks are indexed and filled shard
+by shard.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, gather_fsdp, wrap_local
 from .attention import gqa_attention, gqa_cache_spec, gqa_params
 from .common import ParamInfo, ShapeDtype, map_tree, remat_wrap, rms_norm
 from .ffn import mlp, mlp_params
-from .lm import _embed_tokens, _layers, _logits, compute_dtype, stack_infos
+from .lm import _embed_tokens, _layers, _logits, _rows, compute_dtype, stack_infos
 from .ssm import mamba_cache_spec, mamba_decode_step, mamba_params, mamba_scan
 from .xlstm import (
     mlstm_cache_spec,
@@ -58,18 +68,34 @@ def _tokens(params, batch) -> torch.Tensor:
 def _block(cfg, core_step, core_scan, pl, x, cache, decode: bool, prefill: bool):
     """One pre-norm residual block: (x + core(rms_norm(x)), its state
     or None)."""
-    h = rms_norm(x, pl["ln"], cfg.norm_eps)
+    pl = gather_fsdp(pl)
+    h = _rows(rms_norm(x, pl["ln"], cfg.norm_eps))
     if decode:
         out, state = core_step(pl["core"], h, cache, cfg)
     elif prefill:
         out, state = core_scan(pl["core"], h, cfg, return_state=True)
     else:
         out, state = core_scan(pl["core"], h, cfg), None
-    return x + out, state
+    return x + _rows(out), state
 
 
 def _at(tree, *index):
-    return map_tree(lambda _, a: a[index], tree)
+    return map_tree(lambda _, a: _index(a, index), tree)
+
+
+def _index(a: torch.Tensor, index: tuple):
+    """``a[index]`` (leading dims), a view.  A DTensor is indexed shard
+    by shard, so in-place writes reach its stack; an indexed dim that is
+    sharded (the reference's spec of the stacked sLSTM ``n`` puts the
+    group axis over ``data``) is gathered first."""
+    if not isinstance(a, DTensor):
+        return a[index]
+    k = len(index)
+    if any(p.is_shard() and p.dim < k for p in a.placements):
+        a = a.redistribute(a.device_mesh, tuple(Replicate() if p.is_shard() and p.dim < k else p
+                                                for p in a.placements))
+    pls = tuple(Shard(p.dim - k) if p.is_shard() else p for p in a.placements)
+    return wrap_local(a.to_local()[index], a.device_mesh, pls, a.shape[k:])
 
 
 class _Stacker:
@@ -81,14 +107,33 @@ class _Stacker:
     def __init__(self, dims, device):
         self.dims = dims
         self.device = device
-        self.out: Optional[Dict[str, torch.Tensor]] = None
+        self.local: Optional[Dict[str, torch.Tensor]] = None
+        self.like: Dict[str, DTensor] = {}
 
     def put(self, index, state: Dict[str, torch.Tensor]) -> None:
-        if self.out is None:  # dtypes from the states (the compute dtype may promote them)
-            self.out = {k: torch.empty(self.dims + tuple(v.shape), dtype=v.dtype, device=self.device)
-                        for k, v in state.items()}
+        if self.local is None:  # dtypes from the states (the compute dtype may promote them)
+            self.like = {k: v for k, v in state.items() if isinstance(v, DTensor)}
+            self.local = {k: torch.empty(self.dims + tuple(_local(v).shape), dtype=v.dtype,
+                                         device=self.device) for k, v in state.items()}
         for k, v in state.items():
-            self.out[k][index] = v
+            self.local[k][index] = _local(v)
+
+    @property
+    def out(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The stacks; a DTensor state's stack is one too, each rank
+        holding its shards of every layer."""
+        if self.local is None:
+            return None
+        out = dict(self.local)
+        k = len(self.dims)
+        for name, v in self.like.items():
+            pls = tuple(Shard(p.dim + k) if p.is_shard() else p for p in v.placements)
+            out[name] = wrap_local(out[name], v.device_mesh, pls, self.dims + tuple(v.shape))
+        return out
+
+
+def _local(v):
+    return v.to_local() if isinstance(v, DTensor) else v
 
 
 # ----------------------------------------------------------------------
@@ -192,14 +237,16 @@ def zamba_abstract(cfg: ModelConfig) -> Dict[str, Any]:
 def _shared_block(cfg: ModelConfig, shared, lora, inv: int, x: torch.Tensor,
                   positions: torch.Tensor, cache_inv=None):
     """The shared attention+MLP block with invocation ``inv``'s LoRA row:
-    (output, the invocation's cache, written in place, or None)."""
+    (output, the invocation's cache, written in place, or None).  On a
+    mesh ``shared`` and ``lora`` come gathered over the data axes."""
     dt = x.dtype
-    h = rms_norm(x, shared["ln_attn"], cfg.norm_eps)
-    delta_q = (h @ lora["a_q"][inv].to(dt)) @ lora["b_q"][inv].to(dt)
+    a_q, b_q = _index(lora["a_q"], (inv,)), _index(lora["b_q"], (inv,))
+    h = _rows(rms_norm(x, shared["ln_attn"], cfg.norm_eps))
+    delta_q = (h @ a_q.to(dt)) @ b_q.to(dt)
     attn, new_cache = gqa_attention(shared["attn"], h, positions, cfg, cache=cache_inv)
-    x = x + attn + delta_q
-    h = rms_norm(x, shared["ln_mlp"], cfg.norm_eps)
-    return x + mlp(shared["mlp"], h), new_cache
+    x = x + _rows(attn) + _rows(delta_q)
+    h = _rows(rms_norm(x, shared["ln_mlp"], cfg.norm_eps))
+    return x + _rows(mlp(shared["mlp"], h)), new_cache
 
 
 def zamba_forward(cfg: ModelConfig, params, batch, caches=None, positions=None,
@@ -235,9 +282,11 @@ def zamba_forward(cfg: ModelConfig, params, batch, caches=None, positions=None,
         return xc
 
     mamba = remat_wrap(mamba, cfg.remat_policy)
+    # the shared block and the LoRA stacks gathered once for all invocations
+    shared, lora = gather_fsdp(params["shared"]), gather_fsdp(params["lora"])
     for inv in range(cfg.num_layers // k):
         cache_inv = _at(new_shared, inv) if use_cache else None
-        x, _ = _shared_block(cfg, params["shared"], params["lora"], inv, x, positions, cache_inv)
+        x, _ = _shared_block(cfg, shared, lora, inv, x, positions, cache_inv)
         for i in range(inv * k, (inv + 1) * k):
             x = mamba(x, i, layers[i])
     new_caches = None

@@ -58,7 +58,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import constrain, gather_fsdp
+from ..distributed.sharding import constrain, gather_fsdp, wrap_local
 from .attention import (
     gqa_attention,
     gqa_cache_spec,
@@ -452,12 +452,21 @@ def encdec_abstract(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _rows(x):
+    """The residual stream's layout, ``("batch", "seq", None)``: a
+    row-parallel output meets in one all-reduce before the residual add,
+    and a column-parallel input's gradients in one all-reduce (as in
+    ``_block_apply``)."""
+    return constrain(x, ("batch", "seq", None))
+
+
 def _enc_block_apply(cfg: ModelConfig, pl, x: torch.Tensor, positions: torch.Tensor):
-    h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
+    pl = gather_fsdp(pl)
+    h = _rows(rms_norm(x, pl["ln_attn"], cfg.norm_eps))
     attn, _ = gqa_attention(pl["attn"], h, positions, cfg, causal=False)
-    x = x + attn
-    h = rms_norm(x, pl["ln_mlp"], cfg.norm_eps)
-    return x + mlp(pl["mlp"], h)
+    x = x + _rows(attn)
+    h = _rows(rms_norm(x, pl["ln_mlp"], cfg.norm_eps))
+    return x + _rows(mlp(pl["mlp"], h))
 
 
 def encode(cfg: ModelConfig, params, frames) -> torch.Tensor:
@@ -479,15 +488,16 @@ def _dec_block_apply(cfg, pl, x, positions, enc_out, cache, enc_valid=None):
     """Causal self-attention with the cache, then cross-attention to
     ``enc_out`` (no RoPE, keys masked by ``enc_valid``, no cache: the
     reference projects ``enc_out`` again at every step), then the MLP."""
-    h = rms_norm(x, pl["ln_self"], cfg.norm_eps)
+    pl = gather_fsdp(pl)
+    h = _rows(rms_norm(x, pl["ln_self"], cfg.norm_eps))
     attn, new_cache = gqa_attention(pl["self_attn"], h, positions, cfg, cache=cache)
-    x = x + attn
-    h = rms_norm(x, pl["ln_cross"], cfg.norm_eps)
+    x = x + _rows(attn)
+    h = _rows(rms_norm(x, pl["ln_cross"], cfg.norm_eps))
     cross, _ = gqa_attention(pl["cross_attn"], h, positions, cfg, kv_x=enc_out, causal=False,
                              use_rope=False, kv_valid=enc_valid)
-    x = x + cross
-    h = rms_norm(x, pl["ln_mlp"], cfg.norm_eps)
-    return x + mlp(pl["mlp"], h), new_cache
+    x = x + _rows(cross)
+    h = _rows(rms_norm(x, pl["ln_mlp"], cfg.norm_eps))
+    return x + _rows(mlp(pl["mlp"], h)), new_cache
 
 
 def decode_stack(cfg: ModelConfig, params, tokens, enc_out, caches=None, positions=None,
@@ -518,6 +528,17 @@ def decode_stack(cfg: ModelConfig, params, tokens, enc_out, caches=None, positio
         cl = None if caches is None else {k: c[i] for k, c in new_caches["layers"].items()}
         x = body(pl, x, cl)
     return _logits(cfg, params, x, head_mode), new_caches
+
+
+def pad_seq(x: torch.Tensor, length: int) -> torch.Tensor:
+    """``x`` [B, T, ...] zero-padded along dim 1 to ``length`` (an
+    encoder-decoder's ``enc_out`` cache buffer).  A DTensor, whose dim 1
+    is whole, is padded shard by shard."""
+    pad = (0, 0) * (x.dim() - 2) + (0, length - x.shape[1])
+    if not isinstance(x, DTensor):
+        return torch.nn.functional.pad(x, pad)
+    return wrap_local(torch.nn.functional.pad(x.to_local(), pad), x.device_mesh, x.placements,
+                      (x.shape[0], length) + tuple(x.shape[2:]))
 
 
 def encdec_loss(cfg: ModelConfig, params, batch):

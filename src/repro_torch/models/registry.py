@@ -117,6 +117,53 @@ def _generic_loss(cfg, fwd, params, batch):
     return xent + aux, {"xent": xent, "aux": aux}
 
 
+def prefill(cfg: ModelConfig, params: ParamTree, batch, caches):
+    """The reference ``Model.prefill`` of ``cfg``'s family: (last logits
+    [B, 1, V], caches).  A decoder writes the prompt into its caches; an
+    encoder-decoder encodes ``batch["frames"]``, prefills the decoder
+    with ``batch["tokens"]`` against the unpadded ``enc_out`` (no
+    ``enc_len``) and keeps ``enc_out`` zero-padded to the caches' length,
+    in their dtype, with its length; xLSTM scans and returns its states
+    (not reading the caches passed in); Zamba2 also writes the shared
+    block's KV caches."""
+    lm._not_ported(cfg)
+    if cfg.family in _RECURRENT:
+        return _RECURRENT[cfg.family][1](cfg, params, batch, caches=caches, head_mode="last",
+                                         prefill=True)
+    if cfg.family != "encdec":
+        return lm.decoder_prefill(cfg, params, batch, caches)
+    enc_out = lm.encode(cfg, params, batch["frames"])
+    buf = caches["enc_out"]
+    enc_buf = lm.pad_seq(enc_out, buf.shape[1]).to(buf.dtype)
+    logits, new = lm.decode_stack(cfg, params, batch["tokens"], enc_out,
+                                  {"layers": caches["layers"]}, head_mode="last")
+    enc_len = torch.tensor(enc_out.shape[1], dtype=torch.int32, device=buf.device)
+    return logits, {**caches, "enc_out": enc_buf, "enc_len": enc_len, "layers": new["layers"]}
+
+
+def decode_step(cfg: ModelConfig, params: ParamTree, tokens, caches, positions):
+    """The reference ``Model.decode_step``: one token [B, 1] from the
+    caches at ``positions`` [B, 1] -> (logits [B, 1, V], new caches).  An
+    encoder-decoder attends to the cached ``enc_out`` masked at
+    ``enc_len``; xLSTM ignores ``positions``."""
+    lm._not_ported(cfg)
+    if cfg.family in _RECURRENT:
+        return _RECURRENT[cfg.family][1](cfg, params, {"tokens": tokens}, caches=caches,
+                                         positions=positions)
+    if cfg.family != "encdec":
+        return lm.decoder_decode_step(cfg, params, tokens, caches, positions)
+    logits, new = lm.decode_stack(cfg, params, tokens, caches["enc_out"],
+                                  {"layers": caches["layers"]}, positions,
+                                  enc_len=caches.get("enc_len"))
+    return logits, {**caches, "layers": new["layers"]}
+
+
+def has_split_head(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s family has ``hidden_step`` and ``head_matrix``
+    (the decoders; not an encoder-decoder or the recurrent families)."""
+    return cfg.family not in ("encdec",) + tuple(_RECURRENT)
+
+
 def _register(module: torch.nn.Module, tree: ParamTree, requires_grad: bool) -> None:
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
@@ -168,12 +215,13 @@ class Model(torch.nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, caches):
-        """(last logits [B, 1, V], caches)."""
-        return lm.decoder_prefill(self.cfg, self.params(), batch, caches)
+        """(last logits [B, 1, V], caches): ``prefill`` on the model's
+        parameters."""
+        return prefill(self.cfg, self.params(), batch, caches)
 
     @torch.no_grad()
     def decode_step(self, tokens, caches, positions):
-        return lm.decoder_decode_step(self.cfg, self.params(), tokens, caches, positions)
+        return decode_step(self.cfg, self.params(), tokens, caches, positions)
 
     @torch.no_grad()
     def hidden_step(self, tokens, caches, positions):
@@ -218,28 +266,6 @@ class EncDecModel(Model):
         p = self.params()
         return lm.decode_stack(self.cfg, p, batch["tokens"], lm.encode(self.cfg, p, batch["frames"]))[0]
 
-    @torch.no_grad()
-    def prefill(self, batch, caches):
-        """The reference's: the decoder is prefilled against the
-        unpadded ``enc_out`` with no ``enc_len``; the caches keep it
-        zero-padded to their length, in their dtype, and its length."""
-        p = self.params()
-        enc_out = lm.encode(self.cfg, p, batch["frames"])
-        buf = caches["enc_out"]
-        pad = buf.shape[1] - enc_out.shape[1]
-        enc_buf = torch.nn.functional.pad(enc_out, (0, 0, 0, pad)).to(buf.dtype)
-        logits, new = lm.decode_stack(self.cfg, p, batch["tokens"], enc_out,
-                                      {"layers": caches["layers"]}, head_mode="last")
-        enc_len = torch.tensor(enc_out.shape[1], dtype=torch.int32, device=buf.device)
-        return logits, {**caches, "enc_out": enc_buf, "enc_len": enc_len, "layers": new["layers"]}
-
-    @torch.no_grad()
-    def decode_step(self, tokens, caches, positions):
-        logits, new = lm.decode_stack(self.cfg, self.params(), tokens, caches["enc_out"],
-                                      {"layers": caches["layers"]}, positions,
-                                      enc_len=caches.get("enc_len"))
-        return logits, {**caches, "layers": new["layers"]}
-
 
 class RecurrentModel(Model):
     """xLSTM (``ssm``) or Zamba2 (``hybrid``), the reference's lambdas:
@@ -253,20 +279,9 @@ class RecurrentModel(Model):
     hidden_step = None
     head_matrix = None
 
-    def _forward(self, *args, **kw):
-        return _RECURRENT[self.cfg.family][1](self.cfg, self.params(), *args, **kw)
-
     @torch.no_grad()
     def forward(self, batch):
-        return self._forward(batch)[0]
-
-    @torch.no_grad()
-    def prefill(self, batch, caches):
-        return self._forward(batch, caches=caches, head_mode="last", prefill=True)
-
-    @torch.no_grad()
-    def decode_step(self, tokens, caches, positions):
-        return self._forward({"tokens": tokens}, caches=caches, positions=positions)
+        return _RECURRENT[self.cfg.family][1](self.cfg, self.params(), batch)[0]
 
 
 def build_model(cfg: ModelConfig, *, seed: int = 0, device=None, train: bool = False,

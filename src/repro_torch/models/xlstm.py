@@ -20,6 +20,13 @@ that dtype; the gates, the chunk einsums and every recurrent state are
 float32; masked log weights are ``-inf``, the carried ``m`` starts at
 -1e30, and the denominator is ``max(|denom|, exp(-m))``.
 
+On a mesh (``x`` a DTensor in the residual stream's layout) each block
+runs on the rank's own batch rows with its weights gathered whole once
+(``sharding.run_on_rows``): every head on every ``model`` rank, so the
+sLSTM's recurrence needs no collective per step, and the fused
+``w_up`` ([x | z]) and ``w_gates`` / ``r_gates`` ([z | i | f | o]),
+whose splits do not fall on the shard boundaries, are cut locally.
+
 One deliberate difference: ``slstm_scan`` multiplies the whole
 sequence's inputs by ``w_gates`` (float32) once, before the time loop,
 where the reference multiplies each step's row inside it.  Both compute
@@ -33,8 +40,10 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import run_on_rows
 from .common import ParamInfo, ShapeDtype, rms_norm
 
 _M0 = -1e30  # the stabiliser of an empty history, as the reference's
@@ -98,6 +107,8 @@ def mlstm_scan(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                return_state: bool = False):
     """Chunked-parallel mLSTM over a full sequence.  x: [B, T, d].
     With ``return_state`` also the final ``{"c", "n", "m"}`` (float32)."""
+    if isinstance(x, DTensor):
+        return run_on_rows(lambda pl, xl, _: mlstm_scan(pl, xl, cfg, return_state), p, x)
     d, h, d_in, hd = _dims(cfg)
     dt = x.dtype
     b, t, _ = x.shape
@@ -152,6 +163,8 @@ def mlstm_scan(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 
 def mlstm_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], cfg: ModelConfig):
     """One token: x [B, 1, d] -> (out [B, 1, d], new ``{"c", "n", "m"}``)."""
+    if isinstance(x, DTensor):
+        return run_on_rows(lambda pl, xl, cl: mlstm_decode_step(pl, xl, cl, cfg), p, x, cache)
     d, h, d_in, hd = _dims(cfg)
     dt = x.dtype
     up = x[:, 0] @ p["w_up"].to(dt)
@@ -228,6 +241,8 @@ def slstm_scan(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                return_state: bool = False):
     """sLSTM over a full sequence, step by step.  x: [B, T, d].  With
     ``return_state`` also the final ``{"c", "n", "h", "m"}`` (float32)."""
+    if isinstance(x, DTensor):
+        return run_on_rows(lambda pl, xl, _: slstm_scan(pl, xl, cfg, return_state), p, x)
     _, _, d_in, _ = _dims(cfg)
     b, t, _ = x.shape
     # the input projection of every step at once (see the module's note)
@@ -247,6 +262,8 @@ def slstm_scan(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 
 def slstm_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], cfg: ModelConfig):
     """One token: x [B, 1, d] -> (out [B, 1, d], new ``{"c", "n", "h", "m"}``)."""
+    if isinstance(x, DTensor):
+        return run_on_rows(lambda pl, xl, cl: slstm_decode_step(pl, xl, cl, cfg), p, x, cache)
     _, _, d_in, _ = _dims(cfg)
     xw, gate = _slstm_in(p, x[:, 0], d_in)
     c, n, hnew, m = _slstm_cell(p, xw, (cache["c"], cache["n"], cache["h"], cache["m"]))

@@ -620,17 +620,28 @@ def test_nccl_takes_one_card_a_rank_and_never_falls_back(monkeypatch):
 
 
 def test_bundles_refuse_what_has_no_torch_form():
-    from repro_torch.launch import steps
-    from repro_torch.models import build_model
+    """What once raised here now has a torch form: ``lower()`` returns the
+    bundle's dry-run record (rank 0's step traced on fake tensors over a
+    fake process group), the vlm, encdec, ssm and hybrid families build
+    their decode bundles on a mesh, and the one thing with no torch form
+    left, the dry-run's ``--save-hlo``, is refused."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
 
-    bundle = steps.StepBundle(fn=None, args_abstract=(), in_shardings=(), out_shardings=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP 13c"):
-        bundle.lower()
-    assert bundle.jit() is bundle
-    for arch in ("xlstm-1.3b", "zamba2-2.7b", "internvl2-26b", "seamless-m4t-large-v2"):
-        model = build_model(_tcfg(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP 13c"):
-            steps.build_decode_step(model, None, _shape("decode", 8, 2))
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        bundle = steps.build_train_step(registry.Model(_tcfg("minicpm-2b"), {}, train=True), mesh,
+                                        _shape())
+        assert bundle.jit() is bundle
+        rec = bundle.lower()
+        assert rec["status"] == "ok" and rec["n_devices"] == 4 and rec["cost"]["flops"] > 0
+        for arch in ("xlstm-1.3b", "zamba2-2.7b", "internvl2-26b", "seamless-m4t-large-v2"):
+            dec = steps.build_decode_step(registry.Model(_tcfg(arch), {}), mesh,
+                                          _shape("decode", 8, 2))
+            assert dec.lower()["status"] == "ok", arch
+    with pytest.raises(SystemExit, match="no optimized HLO"):
+        dryrun.main(["--save-hlo"])
 
 
 # ----------------------------------------------------------------------
