@@ -36,6 +36,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..obs.tracer import TRACER
+
 # The plain limb dots need exact float32 products of 8-bit limbs; TF32
 # keeps a 10-bit mantissa and would round them.  This is also
 # PyTorch's default, stated here because exactness depends on it.
@@ -495,10 +497,12 @@ def prng_key(seed: int) -> Key:
 
 def split(key: Key, n: int = 2) -> List[Key]:
     """``jax.random.split(key, n)`` under threefry's partitionable mode:
-    subkey i is the output word pair of threefry2x32(key, (0, i))."""
-    ctr = torch.arange(n, dtype=torch.int64)
-    x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(ctr), ctr)
-    return [(int(w0), int(w1)) for w0, w1 in zip(x0.tolist(), x1.tolist())]
+    subkey i is the output word pair of threefry2x32(key, (0, i)).  Runs
+    on the host (the ``gf.split`` span)."""
+    with TRACER.span("gf.split"):
+        ctr = torch.arange(n, dtype=torch.int64)
+        x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(ctr), ctr)
+        return [(int(w0), int(w1)) for w0, w1 in zip(x0.tolist(), x1.tolist())]
 
 
 def fold_in(key: Key, data: int) -> Key:

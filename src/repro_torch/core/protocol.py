@@ -472,48 +472,63 @@ def run_batched(
     materializing them; Y is the same either way.
 
     Returns (y [batch, ma, mb] int64 on ``device``, Trace for the batch).
-    """
-    device = resolve_device(device)
-    a, b = _prep_batched_operands(plan, a, b, device)
-    dp = device_plan(plan, device)
-    dims = _plan_dims(plan)
-    p, t, z = dims["p"], dims["t"], dims["z"]
-    if phase2_ids is None:
-        ids2, mix_t = dp.ids2, dp.mix_t
-    else:
-        ids2_h, mix_t = _phase2_selection(plan, phase2_ids, device)
-        ids2 = _index(ids2_h, device)
-    ids3, decode_w = _phase3_device_selection(plan, phase3_ids, device)
-    batch, _, ma = a.shape
-    mb = b.shape[-1]
-    bry, bcy = ma // t, mb // t
-    blk_flat = bry * bcy
 
-    with TRACER.span("protocol.run_batched", batch=int(batch), backend=backend):
+    With the tracer on, ``protocol.run_batched`` holds five phase spans,
+    in order: ``.prep`` (operands, device plan, the Phase-2/3
+    selections), ``.share``, ``.multiply`` (the P2 worker product),
+    ``.reduce`` (the degree reduction) and ``.decode`` (with the int64
+    cast of Y); every device operation of the call is launched inside
+    one of them.
+    """
+    with TRACER.span("protocol.run_batched", backend=backend) as span:
+        with TRACER.span("protocol.run_batched.prep"):
+            device = resolve_device(device)
+            a, b = _prep_batched_operands(plan, a, b, device)
+            dp = device_plan(plan, device)
+            dims = _plan_dims(plan)
+            p, t, z = dims["p"], dims["t"], dims["z"]
+            if phase2_ids is None:
+                ids2, mix_t = dp.ids2, dp.mix_t
+            else:
+                ids2_h, mix_t = _phase2_selection(plan, phase2_ids, device)
+                ids2 = _index(ids2_h, device)
+            ids3, decode_w = _phase3_device_selection(plan, phase3_ids, device)
+        batch, _, ma = a.shape
+        mb = b.shape[-1]
+        bry, bcy = ma // t, mb // t
+        blk_flat = bry * bcy
+        span.set(batch=int(batch))
+
         kshare, k3 = split(prng_key(seed), 2)
         # Phase 1
-        fa, fb = _share(
-            a, b, kshare, dp, backend=backend, fused_masks=fused_masks, **dims
-        )
+        with TRACER.span("protocol.run_batched.share"):
+            fa, fb = _share(
+                a, b, kshare, dp, backend=backend, fused_masks=fused_masks, **dims
+            )
         # Phase 2 — worker multiply + dense degree-reduction exchange
-        h = mod_matmul(fa, fb, p=p, backend=backend)  # [batch, n_total, bra, bcb]
-        h_flat = h.index_select(1, ids2).reshape(batch, plan.n_workers, blk_flat)
-        # Only the sum over workers of their blinding matrices enters
-        # I(x), and a sum of uniforms mod p is uniform: the summed term is
-        # drawn directly, as in the JAX package's batched engine.
-        if fused_masks:
-            i_evals = mod_matmul_masked(mix_t, h_flat, dp.vnoise, k3, p=p, backend=backend)
-        else:
-            i_flat = mod_matmul(mix_t, h_flat, p=p, backend=backend)  # [b, n_total, .]
-            r_sum = random_field_device(_generator(k3, device), (batch, z, blk_flat), p, device)
-            noise = mod_matmul(dp.vnoise, r_sum, p=p, backend=backend)
-            i_evals = mod_add(i_flat, noise, p)
+        with TRACER.span("protocol.run_batched.multiply"):
+            h = mod_matmul(fa, fb, p=p, backend=backend)  # [batch, n_total, bra, bcb]
+        with TRACER.span("protocol.run_batched.reduce"):
+            h_flat = h.index_select(1, ids2).reshape(batch, plan.n_workers, blk_flat)
+            # Only the sum over workers of their blinding matrices enters
+            # I(x), and a sum of uniforms mod p is uniform: the summed term
+            # is drawn directly, as in the JAX package's batched engine.
+            if fused_masks:
+                i_evals = mod_matmul_masked(mix_t, h_flat, dp.vnoise, k3, p=p, backend=backend)
+            else:
+                i_flat = mod_matmul(mix_t, h_flat, p=p, backend=backend)  # [b, n_total, .]
+                r_sum = random_field_device(
+                    _generator(k3, device), (batch, z, blk_flat), p, device
+                )
+                noise = mod_matmul(dp.vnoise, r_sum, p=p, backend=backend)
+                i_evals = mod_add(i_flat, noise, p)
         # Phase 3
-        y = _decode_batched(
-            i_evals.reshape(batch, -1, bry, bcy), decode_w, ids3,
-            p=p, t=t, backend=backend,
-        )
-    return y.to(torch.int64), batch_trace(plan, int(batch))
+        with TRACER.span("protocol.run_batched.decode"):
+            y = _decode_batched(
+                i_evals.reshape(batch, -1, bry, bcy), decode_w, ids3,
+                p=p, t=t, backend=backend,
+            ).to(torch.int64)
+    return y, batch_trace(plan, int(batch))
 
 
 def _sum_traces(traces: Sequence[Trace]) -> Trace:

@@ -49,8 +49,6 @@ from ...core.gf import (
     mod_matmul_f32,
     mod_matmul_int32,
 )
-from ...obs.metrics import REGISTRY
-from ...obs.tracer import TRACER
 from .kernel import choose_design, design_tiles, modmatmul_cuda, modmatmul_masked_cuda
 
 _CUDA_VARIANTS = {"cuda": "f32", "cuda_int32": "int32"}
@@ -240,15 +238,6 @@ def _batch_of(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return tuple(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
 
 
-def _event(backend, a, b, **attrs) -> None:
-    REGISTRY.counter("kernels.modmatmul_calls").inc()
-    if TRACER.enabled:
-        TRACER.event(
-            "modmatmul.call", backend=backend,
-            m=int(a.shape[-2]), k=int(a.shape[-1]), n=int(b.shape[-1]), **attrs,
-        )
-
-
 def _check_tiles(backend, m, k, n, z=0) -> None:
     tiles = tuple(pick_tiles(m, k, n, backend=backend, z=z))
     compiled = _compiled_tiles(backend, m, k, n, z)
@@ -268,7 +257,6 @@ def mod_matmul(
     operand), and that side is shared, never broadcast.
     """
     backend = _backend(backend, a, b)
-    _event(backend, a, b)
     if backend in _PLAIN:
         return _PLAIN[backend](a, b, p)
     m, k = a.shape[-2:]
@@ -309,7 +297,6 @@ def mod_matmul_masked(
         mm = mod_matmul(a, b, p=p, backend=backend)
         mask = field_mask(key, batch + (z, n), p, device=a.device)
         return mod_add(mm, mod_matmul(v, mask, p=p, backend=backend), p)
-    _event(backend, a, b, fused_mask=True)
     _check_tiles(backend, m, k, n, z)
     variant = _CUDA_VARIANTS[backend]
     v = v.contiguous()

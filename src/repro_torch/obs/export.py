@@ -14,8 +14,9 @@ and ``chrome://tracing``) renders the tracer's two clocks as two
 
 Simulated timestamps are unitless model time; the export maps one
 simulated unit to one second (1e6 µs), so a replay with unit latency
-renders on a readable scale.  Wall timestamps are rebased to the
-earliest wall event.
+renders on a readable scale.  Wall timestamps (integer ns on the Unix
+epoch, ``tracer``'s record shape) are rebased to the earliest wall event
+and converted to µs; the JSONL log gives them in seconds.
 
 ``to_chrome`` also embeds a metrics snapshot under the top-level
 ``repro_metrics`` key — Perfetto ignores unknown top-level keys, and
@@ -24,7 +25,8 @@ accounting.  ``validate_chrome`` is the schema check behind
 ``make trace-check`` and the tracer tests.
 
 A copy of the JAX package's ``repro.obs.export`` (plain Python and numpy),
-kept here so that the port imports nothing of that package.
+kept here so that the port imports nothing of that package; only the
+conversion of the wall stamps differs (the reference's are seconds).
 """
 from __future__ import annotations
 
@@ -78,7 +80,7 @@ def to_chrome(
     wall_t0 = min(
         (e["t0"] if e["kind"] == "span" else e["t"]
          for e in events if e["clock"] == "wall"),
-        default=0.0,
+        default=0,
     )
 
     out: List[dict] = [
@@ -115,18 +117,20 @@ def to_chrome(
         if e["parent"]:
             args["parent_id"] = e["parent"]
         if e["kind"] == "span":
-            t0 = e["t0"] if sim else e["t0"] - wall_t0
-            dur = max(0.0, e["t1"] - e["t0"])
+            if sim:
+                ts, dur = e["t0"] * 1e6, max(0.0, e["t1"] - e["t0"]) * 1e6
+            else:
+                ts, dur = (e["t0"] - wall_t0) / 1e3, max(0, e["t1"] - e["t0"]) / 1e3
             out.append(
                 {"name": e["name"], "cat": e["clock"], "ph": "X",
-                 "ts": t0 * 1e6, "dur": dur * 1e6, "pid": pid, "tid": tid,
+                 "ts": ts, "dur": dur, "pid": pid, "tid": tid,
                  "args": args}
             )
         else:
-            t = e["t"] if sim else e["t"] - wall_t0
+            ts = e["t"] * 1e6 if sim else (e["t"] - wall_t0) / 1e3
             out.append(
                 {"name": e["name"], "cat": e["clock"], "ph": "i",
-                 "ts": t * 1e6, "s": "t", "pid": pid, "tid": tid,
+                 "ts": ts, "s": "t", "pid": pid, "tid": tid,
                  "args": args}
             )
 
@@ -151,12 +155,17 @@ def write_chrome(
 
 
 def to_jsonl(source: Union[Tracer, List[dict]]) -> str:
-    """Flat one-record-per-line event log (raw tracer records)."""
+    """Flat one-record-per-line event log (tracer records, wall stamps in
+    seconds)."""
     lines = []
     for e in _events_of(source):
         rec = dict(e)
         if isinstance(rec.get("track"), tuple):
             rec["track"] = list(rec["track"])
+        if rec["clock"] == "wall":
+            for key in ("t0", "t1", "t"):
+                if key in rec:
+                    rec[key] = rec[key] / 1e9
         lines.append(json.dumps(rec, sort_keys=True))
     return "\n".join(lines) + ("\n" if lines else "")
 

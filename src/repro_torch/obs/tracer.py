@@ -34,13 +34,17 @@ Record shape (a plain dict per event, see ``Tracer.events``):
             link to anything via attrs instead)
 ``track``   wall: thread id; sim: a ``(lane, index)`` tuple such as
             ``("worker", 3)`` or ``("replay", 0)``
-``t0, t1``  spans: start/end on the record's clock (wall: seconds from
-            ``time.perf_counter``; sim: the caller's simulated units)
-``t``       instants: the single timestamp
+``t0, t1``  spans: start/end on the record's clock (wall: integer
+            nanoseconds on the Unix epoch from ``time.time_ns``, the clock
+            of ``torch.profiler``'s events, so a wall span and the device
+            operations launched inside it can be matched; sim: the
+            caller's simulated units)
+``t``       instants: the single timestamp, on the same clocks
 ``attrs``   caller attributes (JSON-serializable values expected)
 
 A copy of the JAX package's ``repro.obs.tracer`` (plain Python and numpy),
-kept here so that the port imports nothing of that package.
+kept here so that the port imports nothing of that package; only the wall
+clock differs (the reference stamps seconds from ``time.perf_counter``).
 """
 from __future__ import annotations
 
@@ -94,7 +98,7 @@ class Span:
         self.attrs = attrs
         self.id = tracer._next_id()
         self.parent = 0
-        self.t0 = 0.0
+        self.t0 = 0
         self._track = 0
 
     def set(self, **attrs) -> "Span":
@@ -135,7 +139,7 @@ class Span:
 class Tracer:
     """Thread-safe two-clock event recorder (module docstring)."""
 
-    def __init__(self, max_events: int = MAX_EVENTS_DEFAULT, clock=time.perf_counter):
+    def __init__(self, max_events: int = MAX_EVENTS_DEFAULT, clock=time.time_ns):
         self.enabled = False
         self.max_events = int(max_events)
         self._clock = clock
