@@ -529,10 +529,37 @@ def site_table(plan, batch: int) -> dict:
     }
 
 
-# the kernel each site launches, unfused and fused
-UNFUSED_SITES = ("P1 share A", "P1 share B", "P2 multiply", "P2 mix", "P2 noise", "P3 decode")
+# the kernel each site launches, unfused and fused.  Unfused, the degree
+# reduction is one loaded-rows launch, REDUCE_SITE, in the place of "P2
+# mix" and "P2 noise" (which stay in site_table for --variant-path and
+# the parent trees it times)
+UNFUSED_SITES = ("P1 share A", "P1 share B", "P2 multiply", "P3 decode")
 FUSED_MASKED = ("P1 share A", "P1 share B", "P2 mix")
 FUSED_PLAIN = ("P2 multiply", "P3 decode")
+REDUCE_SITE = "P2 mix + noise"
+
+
+def reduce_site(plan, batch: int) -> tuple:
+    """Shapes of run_batched's unfused degree reduction, a @ h[rows] +
+    v @ r: (a, h, v, r), with rows the first n_workers of h's n_total."""
+    n, nw, z = plan.n_total, plan.n_workers, plan.scheme.z
+    blk = plan.shapes.blk_y[0] * plan.shapes.blk_y[1]
+    return (n, nw), (batch, n, blk), (n, z), (batch, z, blk)
+
+
+def reduce_operands(torch, gen, plan, batch: int) -> tuple:
+    """Random (a, h, rows, v, r) of ``REDUCE_SITE`` on the card, rows the
+    prefix of h's rows that run_batched picks."""
+    sa, sh, sv, sr = reduce_site(plan, batch)
+    a, h, v, r = (torch.randint(0, P, s, generator=gen, device="cuda", dtype=torch.int32)
+                  for s in (sa, sh, sv, sr))
+    return a, h, torch.arange(sa[1], device="cuda"), v, r
+
+
+def reduce_launch_shape(plan, batch: int) -> tuple:
+    """The (B, M, K + z, N) the reduce's launch is counted at."""
+    sa, sh, sv, _ = reduce_site(plan, batch)
+    return (batch, sa[0], sa[1] + sv[1], sh[-1])
 
 
 def geometry(sa, sb):
@@ -630,17 +657,17 @@ def drive(torch, K, protocol, plan, a, b, want, *, backend, fused, tag, seed):
 # launches of one run_batched at full width, per compiled kernel: the P2
 # multiply on the tensor cores, every other site skinny
 MAIN_BY_KERNEL = {
-    False: {"int32_mma": 1, "int32_skinny": 5},
+    False: {"int32_mma": 1, "int32_skinny": 4},
     True: {"int32_mma": 1, "int32_skinny": 1, "int32_skinny_masked": 3},
 }
 F32_BY_KERNEL = {
-    False: {"f32_wgmma": 1, "f32_skinny": 5},
+    False: {"f32_wgmma": 1, "f32_skinny": 4},
     True: {"f32_wgmma": 1, "f32_skinny": 1, "f32_skinny_masked": 3},
 }
 
 
 def expect_launches(K, kernel, masked_kernel, by_kernel, fused: bool, tag: str) -> None:
-    want = {kernel: 2, masked_kernel: 3} if fused else {kernel: 6}
+    want = {kernel: 2, masked_kernel: 3} if fused else {kernel: 5}
     got = {k: v for k, v in K.LAUNCHES.items() if v}
     got_by = {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v}
     if got != want or got_by != by_kernel[fused]:
@@ -682,7 +709,7 @@ def phase_main(torch, K, protocol, layers, planner, constructions, args) -> dict
     res = layers.secure_matmul_batched(af, bf, s=2, t=2, z=2, seed=args.seed)
     torch.cuda.synchronize()
     secs = time.perf_counter() - start
-    if K.LAUNCHES["modmatmul_int32"] != 6:
+    if K.LAUNCHES["modmatmul_int32"] != 5:
         raise AssertionError(f"[layers] launches {dict(K.LAUNCHES)}")
     scale = layers.choose_scales(
         k, float(af.abs().max()) + 1e-9, float(bf.abs().max()) + 1e-9, P
@@ -795,6 +822,15 @@ def phase_variant_path(torch, K, ref, protocol, planner, constructions, args) ->
             result["sites"][f"{site} {form}"] = {
                 "ms": cuda_ms(torch, kern, reps), "device_ms": device_ms(torch, kern, reps)}
         del x, y, v
+        torch.cuda.empty_cache()
+    if hasattr(K, "modmatmul_rows_plus_cuda"):  # a parent tree may predate the form
+        x, h, rows, v, r = reduce_operands(torch, gen, plan, batch)
+        kern = lambda: K.modmatmul_rows_plus_cuda(x, h, rows, v, r, P, variant)  # noqa: E731
+        if not torch.equal(kern(), ref.modmatmul_rows_plus_plain(x, h, rows, v, r, P, variant)):
+            raise AssertionError(f"{variant} loaded-rows kernel != plain version at {REDUCE_SITE}")
+        result["sites"][f"{REDUCE_SITE} rows_plus"] = {
+            "ms": cuda_ms(torch, kern, reps), "device_ms": device_ms(torch, kern, reps)}
+        del x, h, v, r
         torch.cuda.empty_cache()
     backend = {"int32": "cuda_int32", "f32": "cuda"}[variant]
     for fused in (False, True):
@@ -921,6 +957,55 @@ def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_l
     return entry
 
 
+def measure_reduce_site(torch, K, ref, gen, variant, plan, batch, n_launch, args) -> dict:
+    """``REDUCE_SITE`` of ``variant`` on random inputs of its shape (rows
+    the prefix run_batched picks): the loaded-rows launch against its
+    plain version, then its times and bound (no single library call
+    computes it); logs a ``[timing]`` line and returns the ``kernels``
+    entry."""
+    sa, sh, sv, sr = reduce_site(plan, batch)
+    a, h, rows, v, r = reduce_operands(torch, gen, plan, batch)
+    kern = lambda: K.modmatmul_rows_plus_cuda(a, h, rows, v, r, P, variant)  # noqa: E731
+    plain = lambda: ref.modmatmul_rows_plus_plain(a, h, rows, v, r, P, variant)  # noqa: E731
+    got, exp = kern(), plain()
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
+    if err:
+        raise AssertionError(f"{variant} loaded-rows kernel at {REDUCE_SITE}: max abs error {err}")
+    del got, exp
+    reps = args.reps
+    ms, dev_ms = cuda_ms(torch, kern, reps), device_ms(torch, kern, reps)
+    plain_ms = cuda_ms(torch, plain, reps)
+    B, M, Kt, N = reduce_launch_shape(plan, batch)
+    # the rows read (K of h, z of r), the coefficients, the output
+    nbytes = 4 * (M * Kt + B * Kt * N + B * M * N)
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, 8 * B * M * Kt * N / INT8_TC_OPS * 1e3
+    entry = {
+        "name": f"modmatmul_{variant}",
+        "kernel": f"{variant}_skinny",
+        "design": "skinny",
+        "site": REDUCE_SITE,
+        "shape": f"{list(sa)}@{list(sh)}[:{sa[1]}]+{list(sv)}@{list(sr)}",
+        "route": "cuda",
+        "source": SOURCES[f"{variant}_skinny"],
+        "replaces": TPU_KERNELS[f"modmatmul_{variant}"],
+        "launches": n_launch,
+        "max_abs_err": err,
+        "ms": round(ms, 4),
+        "device_ms": round(dev_ms, 4),
+        "plain_ms": round(plain_ms, 4),
+        "bound_ms": round(max(t_bytes, t_ops), 4),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    log(f"[timing] {entry['kernel']:20s} {REDUCE_SITE:12s} {entry['shape']:44s} "
+        f"{ms:9.3f} ms  device {entry['device_ms']}  plain {plain_ms:9.3f}  "
+        f"bound {entry['bound_ms']:7.3f} ({entry['bound_by']})  library None")
+    del a, h, v, r
+    torch.cuda.empty_cache()
+    return entry
+
+
 def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
     plan, batch = run["plan"], run["batch"]
     sites = site_table(plan, batch)
@@ -949,6 +1034,10 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
                                  n_launch, args)
             seen[key] = entry
             entries.append(entry)
+    n_launch = run["counts"][False][f"{variant}_skinny"].get(reduce_launch_shape(plan, batch), 0)
+    if n_launch < 1:
+        raise AssertionError(f"{variant}_skinny never launched at {REDUCE_SITE}")
+    entries.append(measure_reduce_site(torch, K, ref, gen, variant, plan, batch, n_launch, args))
     return entries
 
 
@@ -1628,7 +1717,7 @@ def phase_crt(torch, K, layers, protocol, planner, constructions, gf, ops, args)
             by_kernel = {n: c for n, c in K.LAUNCHES_BY_KERNEL.items() if c}
             by = (MAIN_BY_KERNEL if variant == "int32" else F32_BY_KERNEL)[fused]
             expect = ({f"modmatmul_{variant}": 4, f"modmatmul_{variant}_masked": 6} if fused
-                      else {f"modmatmul_{variant}": 12})
+                      else {f"modmatmul_{variant}": 10})
             if got != expect or by_kernel != {n: 2 * c for n, c in by.items()}:
                 raise AssertionError(f"[{tag}] launches {got} / {by_kernel}")
             if res.plan is not plans[0] or not torch.equal(res.y, y_want):

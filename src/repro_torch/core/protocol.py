@@ -52,9 +52,12 @@ import torch
 from ..kernels.modmatmul.ops import (
     mod_matmul,
     mod_matmul_masked,
+    mod_matmul_rows_plus,
     polyeval,
     polyeval_masked,
+    rows_plus_fuses,
 )
+from ..obs.metrics import REGISTRY
 from ..obs.tracer import TRACER
 from .gf import Key, crt_combine, mod_add, prng_key, random_field_device, split
 from .planner import CMPCPlan
@@ -473,6 +476,14 @@ def run_batched(
 
     Returns (y [batch, ma, mb] int64 on ``device``, Trace for the batch).
 
+    Without ``fused_masks`` the degree reduction is one
+    ``mod_matmul_rows_plus``: on the card, at the skinny designs' shapes
+    (n_total <= 32, n_workers <= 32, n_workers + z <= 128), one launch
+    that reads the selected rows of H in place; otherwise the selection,
+    the mix, the noise and their sum as separate operations.  The
+    ``REGISTRY`` counter ``protocol.reduce.fused`` or
+    ``protocol.reduce.unfused`` counts which, once per call.
+
     With the tracer on, ``protocol.run_batched`` holds five phase spans,
     in order: ``.prep`` (operands, device plan, the Phase-2/3
     selections), ``.share``, ``.multiply`` (the P2 worker product),
@@ -490,7 +501,10 @@ def run_batched(
             if phase2_ids is None:
                 ids2, mix_t = dp.ids2, dp.mix_t
             else:
-                ids2_h, mix_t = _phase2_selection(plan, phase2_ids, device)
+                ids2_h = np.asarray(phase2_ids)
+                if ids2_h.size and (ids2_h.min() < 0 or ids2_h.max() >= plan.n_total):
+                    raise ValueError(f"phase2_ids must lie in [0, {plan.n_total}), got {ids2_h}")
+                ids2_h, mix_t = _phase2_selection(plan, ids2_h, device)
                 ids2 = _index(ids2_h, device)
             ids3, decode_w = _phase3_device_selection(plan, phase3_ids, device)
         batch, _, ma = a.shape
@@ -509,19 +523,22 @@ def run_batched(
         with TRACER.span("protocol.run_batched.multiply"):
             h = mod_matmul(fa, fb, p=p, backend=backend)  # [batch, n_total, bra, bcb]
         with TRACER.span("protocol.run_batched.reduce"):
-            h_flat = h.index_select(1, ids2).reshape(batch, plan.n_workers, blk_flat)
             # Only the sum over workers of their blinding matrices enters
             # I(x), and a sum of uniforms mod p is uniform: the summed term
             # is drawn directly, as in the JAX package's batched engine.
             if fused_masks:
+                h_flat = h.index_select(1, ids2).reshape(batch, plan.n_workers, blk_flat)
                 i_evals = mod_matmul_masked(mix_t, h_flat, dp.vnoise, k3, p=p, backend=backend)
             else:
-                i_flat = mod_matmul(mix_t, h_flat, p=p, backend=backend)  # [b, n_total, .]
                 r_sum = random_field_device(
                     _generator(k3, device), (batch, z, blk_flat), p, device
                 )
-                noise = mod_matmul(dp.vnoise, r_sum, p=p, backend=backend)
-                i_evals = mod_add(i_flat, noise, p)
+                one = rows_plus_fuses(backend, device, plan.n_total, int(ids2.shape[0]), z)
+                REGISTRY.counter("protocol.reduce." + ("fused" if one else "unfused")).inc()
+                i_evals = mod_matmul_rows_plus(  # [b, n_total, .]
+                    mix_t, h.reshape(batch, plan.n_total, blk_flat), ids2, dp.vnoise, r_sum,
+                    p=p, backend=backend,
+                )
         # Phase 3
         with TRACER.span("protocol.run_batched.decode"):
             y = _decode_batched(

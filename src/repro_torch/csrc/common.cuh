@@ -25,6 +25,10 @@ struct Params {
   uint32_t f_mid;    // 2**8 mod p
   uint32_t k0, k1;   // threefry key words (MASKED only)
   float pf, inv_p;   // p and 1/p rounded to float
+  // the skinny form with loaded rows only (skinny.cuh, Extra::loaded)
+  const long long* rows;  // [K] row of b (batch stride b_bs) that is term k
+  const int* r;           // [z, N] per batch element: terms K .. K + z - 1
+  long long r_bs;         // r's batch stride in elements; 0 = shared 2D
 };
 
 // ---------------------------------------------------------------------

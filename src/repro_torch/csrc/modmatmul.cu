@@ -2,6 +2,7 @@
 //
 //   out[b] = a[b] @ b_[b] (mod p)          [B, M, K] @ [B, K, N] -> [B, M, N]
 //   out[b] += v @ R(key)  (mod p)          MASKED: blinding fused in
+//   out[b] = a[b] @ h[b][rows] + v @ r[b]  skinny only: rows picked, z rows loaded
 //
 // All operands are int32 in [0, p); either side may be a single 2D
 // matrix shared by every batch element (batch stride 0, never copied).
@@ -42,13 +43,9 @@
 // passes `scratch` of modmatmul_scratch_bytes (f32 wgmma: A's planes).
 // Returns the launch's CUDA error (0 on success); a refused shape or
 // design returns cudaErrorInvalidValue.
-extern "C" int modmatmul_launch(int design, int masked, const void* a, const void* b,
-                                void* out, int batch, int M, int N, int K,
-                                long long a_bs, long long b_bs, unsigned p,
-                                const void* v, int z, unsigned k0, unsigned k1,
-                                void* scratch, void* stream) {
-  using namespace gfmm;
-  Params P;
+static gfmm::Params make_params(const void* a, const void* b, void* out, int M, int N, int K,
+                                long long a_bs, long long b_bs, unsigned p, const void* v, int z) {
+  gfmm::Params P{};
   P.a = static_cast<const int*>(a);
   P.b = static_cast<const int*>(b);
   P.out = static_cast<int*>(out);
@@ -56,33 +53,68 @@ extern "C" int modmatmul_launch(int design, int masked, const void* a, const voi
   P.M = M;
   P.N = N;
   P.K = K;
-  P.z = masked ? z : 0;
+  P.z = z;
   P.a_bs = a_bs;
   P.b_bs = b_bs;
   P.p = p;
   P.mu = (uint32_t)((1ull << 32) / p);
   P.f_hihi = (1u << 16) % p;
   P.f_mid = 256u % p;
-  P.k0 = k0;
-  P.k1 = k1;
   P.pf = (float)p;
   P.inv_p = 1.f / (float)p;
+  return P;
+}
+
+extern "C" int modmatmul_launch(int design, int masked, const void* a, const void* b,
+                                void* out, int batch, int M, int N, int K,
+                                long long a_bs, long long b_bs, unsigned p,
+                                const void* v, int z, unsigned k0, unsigned k1,
+                                void* scratch, void* stream) {
+  using namespace gfmm;
+  Params P = make_params(a, b, out, M, N, K, a_bs, b_bs, p, v, masked ? z : 0);
+  P.k0 = k0;
+  P.k1 = k1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (design) {
     case 1:
       return (int)(masked ? mma::launch<true>(P, batch, s) : mma::launch<false>(P, batch, s));
     case 2:
-      return (int)(masked ? launch_skinny_rows<SkinnyInt32, true>(P, batch, s)
-                          : launch_skinny_rows<SkinnyInt32, false>(P, batch, s));
+      return (int)(masked ? launch_skinny_by_m<SkinnyInt32, Extra::mask>(P, batch, s)
+                          : launch_skinny_by_m<SkinnyInt32, Extra::none>(P, batch, s));
     case 3:
       if (scratch == nullptr) return (int)cudaErrorInvalidValue;
       return (int)(masked ? wgmma_f32::launch<true>(P, batch, static_cast<unsigned char*>(scratch), s)
                           : wgmma_f32::launch<false>(P, batch, static_cast<unsigned char*>(scratch), s));
     case 4:
-      return (int)(masked ? launch_skinny_rows<SkinnyF32, true>(P, batch, s)
-                          : launch_skinny_rows<SkinnyF32, false>(P, batch, s));
+      return (int)(masked ? launch_skinny_by_m<SkinnyF32, Extra::mask>(P, batch, s)
+                          : launch_skinny_by_m<SkinnyF32, Extra::none>(P, batch, s));
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launch out[b] = a[b] @ h[b][rows] + v @ r[b] (mod p) on `stream`: the
+// skinny designs' loaded-rows form, design 2 (int32) or 4 (f32).  h's
+// rows are N apart and its batch elements h_bs apart; rows [K] (int64,
+// device memory) index h's rows; v [M, z]; r's z rows are N apart and
+// its batch elements r_bs apart.  The caller (kernel.py) has checked
+// what it checks for modmatmul_launch; the indices are read unchecked,
+// so keeping them inside h is its caller's part.
+extern "C" int modmatmul_rows_plus_launch(int design, const void* a, const void* h,
+                                          const void* rows, const void* v, const void* r,
+                                          void* out, int batch, int M, int N, int K, int z,
+                                          long long a_bs, long long h_bs, long long r_bs,
+                                          unsigned p, void* stream) {
+  using namespace gfmm;
+  Params P = make_params(a, h, out, M, N, K, a_bs, h_bs, p, v, z);
+  P.rows = static_cast<const long long*>(rows);
+  P.r = static_cast<const int*>(r);
+  P.r_bs = r_bs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (design) {
+    case 2: return (int)launch_skinny_by_m<SkinnyInt32, Extra::loaded>(P, batch, s);
+    case 4: return (int)launch_skinny_by_m<SkinnyF32, Extra::loaded>(P, batch, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

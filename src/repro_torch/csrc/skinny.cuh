@@ -5,6 +5,17 @@
 //   out[b] = a[b] @ b_[b] (+ v @ R(key))  (mod p)
 //   a [M, K], M <= 32, K <= 32;  b_ [K, N], N up to millions
 //
+// modmatmul_int32_skinny_rows_plus<MAXM> and modmatmul_f32_skinny_rows_plus
+// <MAXM>: the same body with z rows loaded from memory in place of the
+// mask words, and B's K rows picked from a taller operand by index:
+//
+//   out[b] = a[b] @ h[b][rows] + v @ r[b]  (mod p)
+//   rows [K] row indices into h (on the device);  r [z, N]
+//
+// The Phase-2 degree reduction, I = mix.T @ H[ids2] + Vnoise @ R_sum, in
+// one pass: H's selected rows are read in place (no gather copy), and
+// the two terms meet in the accumulators (no second output to add).
+//
 // Replace, for these shapes, the Pallas tile bodies of the JAX package
 // (src/repro/kernels/modmatmul/kernel.py):
 //
@@ -45,6 +56,11 @@
 // COLS x z chains of one thread are independent, and at two or more
 // resident blocks per SM other warps hide their latency.
 //
+// Loaded rows (Extra::loaded).  The K + z terms are all read from memory
+// by the same chunked loop: term k < K is row rows[k] of h (the indices
+// sit in shared memory beside the coefficients), term K + i is row i of
+// r.  The coefficient block is [a | v], as in the masked form.
+//
 // The arithmetic is the policy parameter (SkinnyInt32, SkinnyF32):
 //
 // * int32: a value b < 2**16 is its own limb pair: byte 0 is
@@ -68,7 +84,7 @@
 //   up to 64 terms (every site of the protocol) the sums are below 2**23,
 //   convert to integers by an FADD each, and need one Barrett only.
 //
-// Both caps are K + z <= SKINNY_MAX_TERMS = 128.
+// Both caps are K + z <= SKINNY_MAX_TERMS = 128, loaded rows or mask words.
 #pragma once
 
 #include "common.cuh"
@@ -165,6 +181,10 @@ __device__ __forceinline__ void load_cols(const int* p, uint32_t (&x)[COLS]) {
   for (int j = 0; j < COLS; ++j) x[j] = (uint32_t)e[j];
 }
 
+// What follows B's K rows as z more terms: nothing, the mask words made
+// in the kernel, or z rows loaded from memory.
+enum class Extra { none, mask, loaded };
+
 template <int COLS>
 __device__ __forceinline__ void store_cols(int* p, const uint32_t (&x)[COLS]) {
   typename IntVec<COLS>::T w;
@@ -174,9 +194,10 @@ __device__ __forceinline__ void store_cols(int* p, const uint32_t (&x)[COLS]) {
   __stcs(reinterpret_cast<typename IntVec<COLS>::T*>(p), w);
 }
 
-// vec: N % COLS == 0 and b, out aligned to COLS ints (the launcher
-// checks), so whole column groups move as one vector access.
-template <class Arith, int MAXM, bool MASKED>
+// vec: N % COLS == 0 and b, out (and r, for loaded rows) aligned to COLS
+// ints with batch strides that keep them so (the launcher checks), so
+// whole column groups move as one vector access.
+template <class Arith, int MAXM, Extra E>
 __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
   static_assert(MAXM % 4 == 0, "rows are read four at a time");
   using Coef = typename Arith::Coef;
@@ -185,7 +206,8 @@ __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
   extern __shared__ __align__(16) unsigned char skinny_smem[];
   Coef* coef = reinterpret_cast<Coef*>(skinny_smem);  // [K + z][MAXM]
   const int M = P.M, N = P.N, K = P.K;
-  const int T = K + (MASKED ? P.z : 0);
+  const int T = K + (E == Extra::none ? 0 : P.z);
+  const int KB = E == Extra::loaded ? T : K;  // terms read from memory
   const int bb = blockIdx.y;
   const int* __restrict__ a = P.a + (size_t)bb * (size_t)P.a_bs;
   for (int i = threadIdx.x; i < T * MAXM; i += SKINNY_THREADS) {
@@ -195,6 +217,9 @@ __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
       c = t < K ? (uint32_t)a[(size_t)m * K + t] : (uint32_t)P.v[(size_t)m * P.z + (t - K)];
     coef[i] = Arith::coef(c, P);
   }
+  int* rowid = reinterpret_cast<int*>(coef + T * MAXM);  // [K], loaded rows only
+  if constexpr (E == Extra::loaded)
+    for (int k = threadIdx.x; k < K; k += SKINNY_THREADS) rowid[k] = (int)P.rows[k];
   __syncthreads();
 
   const long long col0 = ((long long)blockIdx.x * SKINNY_THREADS + threadIdx.x) * COLS;
@@ -224,12 +249,19 @@ __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
   };
 
   const int* __restrict__ b = P.b + (size_t)bb * (size_t)P.b_bs + col0;
-  for (int k0 = 0; k0 < K; k0 += KCHUNK) {
+  const int* __restrict__ rz = E == Extra::loaded ? P.r + (size_t)bb * (size_t)P.r_bs + col0 : nullptr;
+  auto row_of = [&](int t) -> const int* {  // the memory row of term t < KB
+    if constexpr (E == Extra::loaded)
+      return t < K ? b + (size_t)rowid[t] * N : rz + (size_t)(t - K) * N;
+    else
+      return b + (size_t)t * N;
+  };
+  for (int k0 = 0; k0 < KB; k0 += KCHUNK) {
     uint32_t x[KCHUNK][COLS];
 #pragma unroll
     for (int kk = 0; kk < KCHUNK; ++kk) {
-      if (k0 + kk < K) {
-        const int* row = b + (size_t)(k0 + kk) * N;
+      if (k0 + kk < KB) {
+        const int* row = row_of(k0 + kk);
         if (full) {
           load_cols<COLS>(row, x[kk]);
         } else {
@@ -240,9 +272,9 @@ __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
     }
 #pragma unroll
     for (int kk = 0; kk < KCHUNK; ++kk)
-      if (k0 + kk < K) accumulate(k0 + kk, x[kk]);
+      if (k0 + kk < KB) accumulate(k0 + kk, x[kk]);
   }
-  if constexpr (MASKED) {
+  if constexpr (E == Extra::mask) {
     for (int zi = 0; zi < P.z; ++zi) {
       uint32_t x[COLS];
 #pragma unroll
@@ -272,41 +304,64 @@ __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
   }
 }
 
-// Two compiled names, so the profiler and the launch counts tell the
-// variants apart.
+// Compiled names of their own, so the profiler and the launch counts
+// tell the variants apart; every name holds modmatmul_<variant>_skinny.
 template <int MAXM, bool MASKED>
 __global__ void __launch_bounds__(SKINNY_THREADS)
     modmatmul_int32_skinny(const Params P, const bool vec) {
-  skinny_body<SkinnyInt32, MAXM, MASKED>(P, vec);
+  skinny_body<SkinnyInt32, MAXM, MASKED ? Extra::mask : Extra::none>(P, vec);
 }
 
 template <int MAXM, bool MASKED>
 __global__ void __launch_bounds__(SKINNY_THREADS)
     modmatmul_f32_skinny(const Params P, const bool vec) {
-  skinny_body<SkinnyF32, MAXM, MASKED>(P, vec);
+  skinny_body<SkinnyF32, MAXM, MASKED ? Extra::mask : Extra::none>(P, vec);
 }
 
-template <int MAXM, bool MASKED>
+template <int MAXM>
+__global__ void __launch_bounds__(SKINNY_THREADS)
+    modmatmul_int32_skinny_rows_plus(const Params P, const bool vec) {
+  skinny_body<SkinnyInt32, MAXM, Extra::loaded>(P, vec);
+}
+
+template <int MAXM>
+__global__ void __launch_bounds__(SKINNY_THREADS)
+    modmatmul_f32_skinny_rows_plus(const Params P, const bool vec) {
+  skinny_body<SkinnyF32, MAXM, Extra::loaded>(P, vec);
+}
+
+template <int MAXM, Extra E>
 auto skinny_kernel(SkinnyInt32) {
-  return modmatmul_int32_skinny<MAXM, MASKED>;
+  if constexpr (E == Extra::loaded)
+    return modmatmul_int32_skinny_rows_plus<MAXM>;
+  else
+    return modmatmul_int32_skinny<MAXM, E == Extra::mask>;
 }
-template <int MAXM, bool MASKED>
+template <int MAXM, Extra E>
 auto skinny_kernel(SkinnyF32) {
-  return modmatmul_f32_skinny<MAXM, MASKED>;
+  if constexpr (E == Extra::loaded)
+    return modmatmul_f32_skinny_rows_plus<MAXM>;
+  else
+    return modmatmul_f32_skinny<MAXM, E == Extra::mask>;
 }
 
-template <class Arith, int MAXM, bool MASKED>
+template <class Arith, int MAXM, Extra E>
 cudaError_t launch_skinny(const Params& P, int batch, cudaStream_t stream) {
   constexpr int COLS = SkinnyCols<MAXM>::value;
   const long long span = (long long)SKINNY_THREADS * COLS;
-  const bool vec = P.N % COLS == 0 && P.b_bs % COLS == 0 &&
-                   (reinterpret_cast<uintptr_t>(P.b) | reinterpret_cast<uintptr_t>(P.out)) %
-                           (sizeof(int) * COLS) ==
-                       0;
-  const int terms = P.K + (MASKED ? P.z : 0);
-  // int32: <= 16 KB; f32: <= 64 KB, above the default 48 KB window
-  const size_t smem = sizeof(typename Arith::Coef) * (size_t)terms * MAXM;
-  auto kernel = skinny_kernel<MAXM, MASKED>(Arith{});
+  uintptr_t addrs = reinterpret_cast<uintptr_t>(P.b) | reinterpret_cast<uintptr_t>(P.out);
+  long long strides = P.b_bs;
+  if (E == Extra::loaded) {
+    addrs |= reinterpret_cast<uintptr_t>(P.r);
+    strides |= P.r_bs;
+  }
+  const bool vec = P.N % COLS == 0 && strides % COLS == 0 && addrs % (sizeof(int) * COLS) == 0;
+  const int terms = P.K + (E == Extra::none ? 0 : P.z);
+  // int32: <= 16 KB; f32: <= 64 KB, above the default 48 KB window;
+  // loaded rows add their K indices
+  const size_t smem = sizeof(typename Arith::Coef) * (size_t)terms * MAXM +
+                      (E == Extra::loaded ? sizeof(int) * (size_t)P.K : 0);
+  auto kernel = skinny_kernel<MAXM, E>(Arith{});
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -317,19 +372,19 @@ cudaError_t launch_skinny(const Params& P, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <class Arith, bool MASKED>
-cudaError_t launch_skinny_rows(const Params& P, int batch, cudaStream_t stream) {
+template <class Arith, Extra E>
+cudaError_t launch_skinny_by_m(const Params& P, int batch, cudaStream_t stream) {
   if (P.M > SKINNY_MAX_M || P.K > SKINNY_MAX_K || P.K + P.z > SKINNY_MAX_TERMS)
     return cudaErrorInvalidValue;
   switch ((P.M + 3) / 4) {  // M rounded up to a multiple of 4
-    case 1: return launch_skinny<Arith, 4, MASKED>(P, batch, stream);
-    case 2: return launch_skinny<Arith, 8, MASKED>(P, batch, stream);
-    case 3: return launch_skinny<Arith, 12, MASKED>(P, batch, stream);
-    case 4: return launch_skinny<Arith, 16, MASKED>(P, batch, stream);
-    case 5: return launch_skinny<Arith, 20, MASKED>(P, batch, stream);
-    case 6: return launch_skinny<Arith, 24, MASKED>(P, batch, stream);
-    case 7: return launch_skinny<Arith, 28, MASKED>(P, batch, stream);
-    case 8: return launch_skinny<Arith, 32, MASKED>(P, batch, stream);
+    case 1: return launch_skinny<Arith, 4, E>(P, batch, stream);
+    case 2: return launch_skinny<Arith, 8, E>(P, batch, stream);
+    case 3: return launch_skinny<Arith, 12, E>(P, batch, stream);
+    case 4: return launch_skinny<Arith, 16, E>(P, batch, stream);
+    case 5: return launch_skinny<Arith, 20, E>(P, batch, stream);
+    case 6: return launch_skinny<Arith, 24, E>(P, batch, stream);
+    case 7: return launch_skinny<Arith, 28, E>(P, batch, stream);
+    case 8: return launch_skinny<Arith, 32, E>(P, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
 from .kernel import (  # noqa: F401
     modmatmul_cuda,
     modmatmul_masked_cuda,
+    modmatmul_rows_plus_cuda,
     reset_launch_counts,
 )
 from .ops import (  # noqa: F401
@@ -8,6 +9,7 @@ from .ops import (  # noqa: F401
     mod_matmul,
     mod_matmul_crt,
     mod_matmul_masked,
+    mod_matmul_rows_plus,
     padded_shape,
     padding_waste,
     pick_tiles,
@@ -15,4 +17,4 @@ from .ops import (  # noqa: F401
     polyeval_masked,
     register_tile_chooser,
 )
-from .ref import modmatmul_masked_plain, modmatmul_ref  # noqa: F401
+from .ref import modmatmul_masked_plain, modmatmul_ref, modmatmul_rows_plus_plain  # noqa: F401

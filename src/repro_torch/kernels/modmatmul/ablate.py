@@ -29,7 +29,7 @@ P = 65521
 _LOAD = "      if (ahead < ntiles) load_tile<VEC>(slot(ahead), a, b, m0, n0, ahead * BK, M, N, K, tid);\n"
 _SPLIT = "      if (kt + 1 < ntiles) split_tile(slot(kt + 1), plane(kt + 1), tid);\n"
 _PRODUCTS = "      products(plane(kt));\n"
-_ACCUMULATE = "      if (k0 + kk < K) accumulate(k0 + kk, x[kk]);"
+_ACCUMULATE = "      if (k0 + kk < KB) accumulate(k0 + kk, x[kk]);"
 _W1 = "#pragma unroll\n        for (int kk = 0; kk < 2 * BK / 16; ++kk) wgmma_f16(w1, d1 + 2 * kk, db + 2 * kk);\n"
 _W0 = "#pragma unroll\n        for (int kk = 0; kk < 2 * BK / 16; ++kk) wgmma_f16(w0, d0 + 2 * kk, db + 2 * kk);\n"
 _F32_LOAD = "      if (kt + AHEAD < ntiles) load_b(kt + AHEAD);\n"
@@ -50,7 +50,7 @@ VARIANTS = {
     ],
     "skinny: loads and stores only": [  # keeps the loads alive, drops the arithmetic
         ("skinny.cuh", _ACCUMULATE,
-         '      if (k0 + kk < K) asm volatile("" ::"r"(x[kk][0] ^ x[kk][COLS - 1]));')
+         '      if (k0 + kk < KB) asm volatile("" ::"r"(x[kk][0] ^ x[kk][COLS - 1]));')
     ],
     "skinny: f32 long finish only": [  # two mod_f per output at every T, not only past 64
         ("skinny.cuh", "const bool short_sum = T <= SKINNY_F32_SHORT_TERMS;", "const bool short_sum = false;")],

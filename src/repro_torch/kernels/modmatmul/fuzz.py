@@ -12,7 +12,12 @@ the same operand arrays):
 * engines — the plain versions on CPU tensors (``f32limb``, ``int32``),
   the Hopper kernels on CUDA tensors (``cuda``, ``cuda_int32``: the
   counterparts of the reference's ``pallas`` / ``pallas_int32``), and
-  the dual-prime ``crt`` route (checked against the oracle mod p1*p2),
+  the dual-prime ``crt`` route (checked against the oracle mod p1*p2);
+  besides, the same product through ``mod_matmul_rows_plus`` (the
+  degree reduction's form, the skinny kernel's loaded-rows launch on the
+  card: ``cuda_rows_plus``, ``cuda_int32_rows_plus``; its plain route
+  on the CPU: ``int32_rows_plus``), on operands rearranged so that the
+  form's result is a @ b (``rows_plus_operands``),
 * layouts — both operands batched, either side 2D (read with batch
   stride 0 by the kernels), both 2D,
 * primes — small, mid, and the adjacent 16-bit maximals 65519/65521,
@@ -39,7 +44,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .ops import mod_matmul, mod_matmul_crt
+from .ops import mod_matmul, mod_matmul_crt, mod_matmul_rows_plus
 
 PRIMES = (3, 251, 257, 4093, 40961, 65519, 65521)
 CRT_PRIMES = (65521, 65519)
@@ -47,24 +52,67 @@ MODES = ("uniform", "high_limb", "near_p", "maximal", "sparse")
 LAYOUTS = ("batched", "lhs2d", "rhs2d", "2d")
 
 
+def _engine_device(backend: str, kernel: bool, device) -> torch.device:
+    if not kernel:
+        return torch.device("cpu")
+    from ...core.protocol import resolve_device
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(
+            f"engine {backend!r} runs the CUDA kernels and needs a CUDA "
+            f"device, got {device}"
+        )
+    return device
+
+
 def _engine(backend: str, kernel: bool) -> Callable:
     def run(a, b, p, device=None):
-        if kernel:
-            from ...core.protocol import resolve_device
-
-            device = resolve_device(device)
-            if device.type != "cuda":
-                raise ValueError(
-                    f"engine {backend!r} runs the CUDA kernels and needs a CUDA "
-                    f"device, got {device}"
-                )
-        else:
-            device = torch.device("cpu")
+        device = _engine_device(backend, kernel, device)
         out = mod_matmul(
             torch.as_tensor(a, dtype=torch.int32, device=device),
             torch.as_tensor(b, dtype=torch.int32, device=device),
             p=p, backend=backend,
         )
+        return out.cpu().numpy().astype(np.int64)
+
+    return run
+
+
+def rows_plus_operands(a: np.ndarray, b: np.ndarray, p: int) -> tuple:
+    """(a', h, rows, v, r) with a' @ h[..., rows, :] + v @ r == a @ b (mod p).
+
+    b's first K' rows sit in a taller h among 3 rows of junk, in a
+    shuffled order.  Where a is 2D and K >= 2, the last min(4, K - 1)
+    terms of the contraction become v @ r (v = a's last columns, r = b's
+    last rows); otherwise v @ r is a pair that cancels (coefficients c
+    and p - c against one random row twice).  Drawn from a generator
+    seeded by the shapes and p, so a case always rearranges the same
+    way."""
+    rng = np.random.default_rng([p, *a.shape, *b.shape])
+    k = a.shape[-1]
+    moved = min(4, k - 1) if a.ndim == 2 else 0
+    kk = k - moved
+    if moved:
+        a1, v, r = a[:, :kk], a[:, kk:], b[..., kk:, :]
+    else:
+        a1 = a
+        c = rng.integers(1, p, (a.shape[-2], 1), dtype=np.int64)
+        v = np.concatenate([c, p - c], axis=1)
+        row = rng.integers(0, p, b.shape[:-2] + (1, b.shape[-1]), dtype=np.int64)
+        r = np.concatenate([row, row], axis=-2)
+    perm = rng.permutation(kk + 3)
+    h = rng.integers(0, p, b.shape[:-2] + (kk + 3, b.shape[-1]), dtype=np.int64)
+    h[..., perm[:kk], :] = b[..., :kk, :]
+    return a1, h, perm[:kk], v, r
+
+
+def _engine_rows_plus(backend: str, kernel: bool) -> Callable:
+    def run(a, b, p, device=None):
+        device = _engine_device(backend, kernel, device)
+        a1, h, rows, v, r = (torch.as_tensor(x, dtype=torch.int32, device=device)
+                             for x in rows_plus_operands(a, b, p))
+        out = mod_matmul_rows_plus(a1, h, rows.to(torch.int64), v, r, p=p, backend=backend)
         return out.cpu().numpy().astype(np.int64)
 
     return run
@@ -81,6 +129,9 @@ ENGINES: Dict[str, Callable] = {
     "cuda": _engine("cuda", kernel=True),
     "cuda_int32": _engine("cuda_int32", kernel=True),
     "crt": _engine_crt,
+    "int32_rows_plus": _engine_rows_plus("int32", kernel=False),
+    "cuda_rows_plus": _engine_rows_plus("cuda", kernel=True),
+    "cuda_int32_rows_plus": _engine_rows_plus("cuda_int32", kernel=True),
 }
 
 

@@ -17,7 +17,10 @@ each with a fused-mask form, replace the three Pallas tile bodies of
   for M <= 32, K <= 32 and K + z <= 128, one pass over B and over the
   output, the mask words made as extra rows of B; one template whose
   arithmetic (``dp2a`` on packed coefficients, or float limbs) is its
-  policy parameter.
+  policy parameter.  Its loaded-rows form computes ``a @ h[rows] + v @
+  r`` in one pass: B's K rows picked from a taller ``h`` by an index
+  list, and z more rows loaded from ``r`` (the Phase-2 degree
+  reduction).
 
 :func:`choose_design` is the shape rule.
 
@@ -27,7 +30,8 @@ library with a plain C interface under ``build/repro_torch_kernels/`` (or
 flags so an edit rebuilds; ``ctypes`` loads it.  Nothing is built or
 imported when this module is imported.
 
-Wrappers: :func:`modmatmul_cuda` and :func:`modmatmul_masked_cuda`.  On
+Wrappers: :func:`modmatmul_cuda`, :func:`modmatmul_masked_cuda` and
+:func:`modmatmul_rows_plus_cuda`.  On
 CUDA tensors they check device, dtype, contiguity and shape, allocate
 the output (and the scratch a design asks for), launch on the current
 stream, raise if the launch failed, and add one to the launch counts.  On CPU tensors they run the kernel's
@@ -76,7 +80,8 @@ _MAX_GRID_YZ = 65535
 # Launch counts.  LAUNCHES is keyed by the TPU kernel each launch stands
 # for; LAUNCHES_BY_KERNEL by the compiled kernel that ran.  Each has a
 # Counter of (B, M, K, N) per name beside it.  Each wrapper adds one
-# where it launches a kernel and nowhere else.
+# where it launches a kernel and nowhere else.  A loaded-rows launch
+# counts as its design's plain form with K + z rows of B.
 KERNEL_NAMES = ("modmatmul_int32", "modmatmul_int32_masked", "modmatmul_f32", "modmatmul_f32_masked")
 COMPILED_NAMES = (
     "int32_mma", "int32_mma_masked", "int32_skinny", "int32_skinny_masked",
@@ -197,6 +202,17 @@ def bind(so: Path):
         ctypes.c_void_p,  # scratch
         ctypes.c_void_p,  # stream
     ]
+    fn = lib.modmatmul_rows_plus_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int,  # design
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a, h, rows
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # v, r, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch, M, N, K, z
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch strides of a, h, r
+        ctypes.c_uint,  # p
+        ctypes.c_void_p,  # stream
+    ]
     lib.modmatmul_scratch_bytes.restype = ctypes.c_longlong
     lib.modmatmul_scratch_bytes.argtypes = [ctypes.c_int] * 4
     return lib
@@ -245,11 +261,16 @@ def _geometry(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int, int, int]:
     return int(batch), int(m), int(k), int(n)
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _check_device(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: operands must share one CUDA device")
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    _check_device(name, *tensors)
+    for t in tensors:
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: operands must be int32, got {t.dtype}")
         if not t.is_contiguous():
@@ -318,11 +339,15 @@ def _launch(variant, a, b, p, v=None, key=(0, 0)) -> torch.Tensor:
     err = launch_into(load_library(), base, a, b, out, p, v, key)
     if err != 0:
         raise RuntimeError(f"{compiled}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[name][(batch, m, k, n)] += 1
-    LAUNCHES_BY_KERNEL[compiled] += 1
-    LAUNCH_SHAPES_BY_KERNEL[compiled][(batch, m, k, n)] += 1
+    _count(name, compiled, (batch, m, k, n))
     return out
+
+
+def _count(name: str, compiled: str, shape: tuple) -> None:
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name][shape] += 1
+    LAUNCHES_BY_KERNEL[compiled] += 1
+    LAUNCH_SHAPES_BY_KERNEL[compiled][shape] += 1
 
 
 def modmatmul_cuda(
@@ -362,3 +387,110 @@ def modmatmul_masked_cuda(
         return ref.modmatmul_masked_plain(a, b, v, key, p, variant)
     return _launch(variant, a, b, p, v=v, key=key)
 
+
+def _rows_plus_geometry(a, h, rows, v, r) -> Tuple[int, int, int, int, int]:
+    """(batch, M, K, z, N) of ``a @ h[rows] + v @ r``; raises on bad shapes.
+
+    a [M, K] or [B, M, K]; h [n_rows, N] or [B, n_rows, N]; rows [K];
+    v [M, z]; r [z, N] or [B, z, N].  The 3D operands share one B."""
+    if a.dim() not in (2, 3) or h.dim() not in (2, 3) or r.dim() not in (2, 3):
+        raise ValueError(f"a, h and r must be 2D or 3D, got {tuple(a.shape)} "
+                         f"{tuple(h.shape)} {tuple(r.shape)}")
+    m, k = (int(x) for x in a.shape[-2:])
+    n = int(h.shape[-1])
+    if rows.dim() != 1 or rows.shape[0] != k:
+        raise ValueError(f"rows must be [K={k}], got {tuple(rows.shape)}")
+    if v.dim() != 2 or v.shape[0] != m:
+        raise ValueError(f"v must be [M={m}, z], got {tuple(v.shape)}")
+    z = int(v.shape[1])
+    if tuple(r.shape[-2:]) != (z, n):
+        raise ValueError(f"r must be [..., z={z}, N={n}], got {tuple(r.shape)}")
+    batches = {int(x.shape[0]) for x in (a, h, r) if x.dim() == 3}
+    if len(batches) > 1:
+        raise ValueError(f"batch dims disagree: {tuple(a.shape)} {tuple(h.shape)} {tuple(r.shape)}")
+    return (batches.pop() if batches else 1), m, k, z, n
+
+
+def _batch_stride(name: str, x: torch.Tensor) -> int:
+    """The batch stride of a 2D or 3D operand whose rows are contiguous
+    and N apart (0 for a 2D one, read by every batch element)."""
+    if (x.shape[-1] > 1 and x.stride(-1) != 1) or (x.shape[-2] > 1 and x.stride(-2) != x.shape[-1]):
+        raise ValueError(f"{name}: rows must be contiguous and N apart, strides {x.stride()}")
+    return int(x.stride(0)) if x.dim() == 3 and x.shape[0] > 1 else 0
+
+
+def launch_rows_plus_into(lib, design: str, a, h, rows, v, r, out, p: int) -> int:
+    """One launch of ``lib``'s loaded-rows form of the skinny ``design``
+    (``"int32_skinny"`` or ``"f32_skinny"``) writing ``out``, on the
+    current stream, with no checks and no counting; returns the CUDA
+    error."""
+    batch, m, k, z, n = _rows_plus_geometry(a, h, rows, v, r)
+    with torch.cuda.device(a.device):
+        return lib.modmatmul_rows_plus_launch(
+            DESIGNS[design],
+            a.data_ptr(), h.data_ptr(), rows.data_ptr(), v.data_ptr(), r.data_ptr(), out.data_ptr(),
+            batch, m, n, k, z,
+            m * k if a.dim() == 3 else 0, _batch_stride("h", h), _batch_stride("r", r),
+            p,
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+
+
+def modmatmul_rows_plus_cuda(
+    a: torch.Tensor,
+    h: torch.Tensor,
+    rows: torch.Tensor,
+    v: torch.Tensor,
+    r: torch.Tensor,
+    p: int = P_DEFAULT,
+    variant: str = "int32",
+) -> torch.Tensor:
+    """``a @ h[..., rows, :] + v @ r  (mod p)`` in one launch of the skinny
+    design's loaded-rows form.
+
+    a [M, K] or [B, M, K]; h [n_rows, N] or [B, n_rows, N], each row
+    contiguous, batch elements any stride apart (h is never copied);
+    rows [K] int64 on h's device; v [M, z]; r [z, N] or [B, z, N], rows
+    contiguous.  Takes only what the skinny designs take: M <= 32, K <=
+    32, K + z <= 128.  The launch reads ``rows`` on the card unchecked:
+    every index must lie in [0, n_rows).  Counted once, under the skinny
+    design, as a product of shape (B, M, K + z, N).  On CPU tensors it
+    runs the plain version (and counts nothing).
+    """
+    tensors = (a, h, rows, v, r)
+    if all(t.device.type == "cpu" for t in tensors):
+        _rows_plus_geometry(*tensors)
+        return ref.modmatmul_rows_plus_plain(a, h, rows, v, r, p, variant)
+    return _launch_rows_plus(variant, a, h, rows, v, r, p)
+
+
+def _launch_rows_plus(variant, a, h, rows, v, r, p) -> torch.Tensor:
+    if not 2 < p < 1 << 16:
+        raise ValueError("kernel requires 2 < p < 2**16")
+    name = _kernel_name(variant, False)
+    compiled = f"{variant}_skinny"
+    batch, m, k, z, n = _rows_plus_geometry(a, h, rows, v, r)
+    _check_device(compiled, a, h, rows, v, r)
+    for t in (a, h, rows, v, r):
+        if t.dtype != (torch.int64 if t is rows else torch.int32):
+            raise ValueError(f"{compiled}: rows must be int64 and the other operands int32")
+    for t in (a, rows, v):
+        if not t.is_contiguous():
+            raise ValueError(f"{compiled}: a, rows and v must be contiguous")
+    _batch_stride("h", h)
+    _batch_stride("r", r)
+    if max(m, n, k) >= 1 << 31:
+        raise ValueError(f"{compiled}: dims must be below 2**31")
+    if choose_design(variant, True, batch, m, k, n, z) != "skinny":
+        raise ValueError(f"{compiled}: M {m}, K {k}, z {z} are outside the skinny designs")
+    if not _grid_ok("skinny", batch, m, n):
+        raise ValueError(f"{compiled}: batch {batch} / M {m} / N {n} exceed the launch grid")
+    batched = any(t.dim() == 3 for t in (a, h, r))
+    out = torch.empty((batch, m, n) if batched else (m, n), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    err = launch_rows_plus_into(load_library(), compiled, a, h, rows, v, r, out, p)
+    if err != 0:
+        raise RuntimeError(f"{compiled} (loaded rows): kernel launch failed with CUDA error {err}")
+    _count(name, compiled, (batch, m, k + z, n))
+    return out

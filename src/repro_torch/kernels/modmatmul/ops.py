@@ -30,6 +30,11 @@ Tiles: each compiled design has one block shape (``pick_tiles``);
 device and pins the winner, which ``pick_tiles`` then returns first.
 ``mod_matmul_crt`` widens the range past one 16-bit prime: one
 ``mod_matmul`` per prime, combined on the host.
+
+``mod_matmul_rows_plus`` is the Phase-2 degree reduction's shape,
+``a @ h[rows] + v @ r``: one launch of the skinny kernel's loaded-rows
+form where ``rows_plus_fuses`` says so, the selection and two products
+otherwise.
 """
 from __future__ import annotations
 
@@ -49,7 +54,13 @@ from ...core.gf import (
     mod_matmul_f32,
     mod_matmul_int32,
 )
-from .kernel import choose_design, design_tiles, modmatmul_cuda, modmatmul_masked_cuda
+from .kernel import (
+    choose_design,
+    design_tiles,
+    modmatmul_cuda,
+    modmatmul_masked_cuda,
+    modmatmul_rows_plus_cuda,
+)
 
 _CUDA_VARIANTS = {"cuda": "f32", "cuda_int32": "int32"}
 _PLAIN = {"f32limb": mod_matmul_f32, "int32": mod_matmul_int32}
@@ -306,6 +317,66 @@ def mod_matmul_masked(
         _flatten_batch(a, batch), _flatten_batch(b, batch), v, key, p, variant
     )
     return out.reshape(batch + (m, n))
+
+
+def rows_plus_fuses(backend: str, device, m: int, k: int, z: int) -> bool:
+    """Whether ``mod_matmul_rows_plus`` runs as one launch: on a CUDA
+    device with a kernel backend (``"auto"`` is one there), at a shape
+    the skinny designs take (M <= 32, K <= 32, K + z <= 128)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    if backend == "auto":
+        backend = _resolve_auto(k, device)
+    variant = _CUDA_VARIANTS.get(backend)
+    return variant is not None and choose_design(variant, True, 1, m, k, 1, z) == "skinny"
+
+
+def _rows_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where its rows are contiguous and N apart (any batch
+    stride), else a contiguous copy."""
+    n = x.shape[-1]
+    if (n <= 1 or x.stride(-1) == 1) and (x.shape[-2] <= 1 or x.stride(-2) == n):
+        return x
+    return x.contiguous()
+
+
+def mod_matmul_rows_plus(
+    a: torch.Tensor,
+    h: torch.Tensor,
+    rows: torch.Tensor,
+    v: torch.Tensor,
+    r: torch.Tensor,
+    p: int = P_DEFAULT,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """``a @ h[..., rows, :] + v @ r  (mod p)``, the degree reduction's
+    ``mix.T @ H[ids2] + Vnoise @ R``.
+
+    a [M, K] or [B, M, K]; h [n_rows, N] or [B, n_rows, N]; rows [K]
+    int64 on h's device, each in [0, n_rows); v [M, z]; r [z, N] or
+    [B, z, N].  Returns int32 [B, M, N] ([M, N] when no operand has a
+    batch axis).
+
+    Where ``rows_plus_fuses`` holds, one launch of the skinny kernel's
+    loaded-rows form reads h's selected rows in place and sums both
+    products in its accumulators.  Elsewhere (a plain backend, the CPU,
+    or M > 32, K > 32, K + z > 128) it computes
+    ``mod_add(mod_matmul(a, h.index_select(-2, rows)), mod_matmul(v, r))``.
+    Both give the same residues.
+    """
+    m, k = a.shape[-2:]
+    z = v.shape[-1]
+    if not rows_plus_fuses(backend, h.device, m, k, z):
+        picked = h.index_select(-2, rows)
+        return mod_add(mod_matmul(a, picked, p=p, backend=backend),
+                       mod_matmul(v, r, p=p, backend=backend), p)
+    if backend == "auto":
+        backend = _resolve_auto(k, h.device)
+    return modmatmul_rows_plus_cuda(
+        a.contiguous(), _rows_contiguous(h), rows.contiguous(), v.contiguous(), _rows_contiguous(r),
+        p, _CUDA_VARIANTS[backend],
+    )
 
 
 def mod_matmul_crt(

@@ -58,3 +58,18 @@ def modmatmul_masked_plain(
     batch = tuple(mm.shape[:-2])
     mask = field_mask(key, batch + (v.shape[-1], b.shape[-1]), p, device=mm.device)
     return mod_add(mm, PLAIN[variant](v, mask, p), p)
+
+
+def modmatmul_rows_plus_plain(
+    a: torch.Tensor,
+    h: torch.Tensor,
+    rows: torch.Tensor,
+    v: torch.Tensor,
+    r: torch.Tensor,
+    p: int = P_DEFAULT,
+    variant: str = "int32",
+) -> torch.Tensor:
+    """The loaded-rows skinny kernel's function with the selection and
+    both products materialized: ``a @ h[..., rows, :] + v @ r  (mod p)``."""
+    picked = PLAIN[variant](a, h.index_select(-2, rows), p)
+    return mod_add(picked, PLAIN[variant](v, r, p), p)

@@ -163,10 +163,11 @@ def _run_on_card_and_cpu(k, ma, mb, fused):
 @pytest.mark.parametrize("fused", [False, True])
 def test_run_batched_on_the_card_equals_the_cpu_run(cuda, fused):
     plan, a, b = _run_on_card_and_cpu(64, 32, 48, fused)
-    expect = {"modmatmul_int32": 2, "modmatmul_int32_masked": 3} if fused else {"modmatmul_int32": 6}
+    # unfused, the degree reduction is one launch (mix and noise in one pass)
+    expect = {"modmatmul_int32": 2, "modmatmul_int32_masked": 3} if fused else {"modmatmul_int32": 5}
     assert {k: v for k, v in K.LAUNCHES.items() if v} == expect
     # at k = 64 every product is skinny, the P2 multiply ([16, 32] blocks) too
-    expect = {"int32_skinny": 2, "int32_skinny_masked": 3} if fused else {"int32_skinny": 6}
+    expect = {"int32_skinny": 2, "int32_skinny_masked": 3} if fused else {"int32_skinny": 5}
     assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == expect
     if fused:  # the in-kernel mask stream: shares bit-identical to the CPU's
         key = gf.prng_key(9)
@@ -182,8 +183,114 @@ def test_run_batched_reaches_the_tensor_core_kernel(cuda, fused):
     # k = 128: the P2 multiply is [32, 64] @ [64, 24], too deep for skinny
     _run_on_card_and_cpu(128, 64, 48, fused)
     expect = ({"int32_mma": 1, "int32_skinny": 1, "int32_skinny_masked": 3} if fused
-              else {"int32_mma": 1, "int32_skinny": 5})
+              else {"int32_mma": 1, "int32_skinny": 4})
     assert {k: v for k, v in K.LAUNCHES_BY_KERNEL.items() if v} == expect
+
+
+# ----------------------------------------------------------------------
+# the degree reduction's loaded-rows launch: a @ h[rows] + v @ r
+# ----------------------------------------------------------------------
+# (batch, M, K, z, N, rows of h, permuted rows, extra rows past each batch
+# element of h and r, mode): M across every row bucket of the kernel, K
+# 1-32, z 1-4 (and the 128-term cap), N ragged against COLS, a batch
+# stride past K * N where there are extra rows
+_ROWS_PLUS_CASES = [
+    (1, 1, 1, 1, 1, 1, False, 0, "uniform"),
+    (5, 5, 32, 4, 1001, 36, True, 2, "uniform"),
+    (3, 8, 7, 2, 4093, 10, True, 3, "near_p"),
+    (2, 12, 14, 3, 1026, 14, False, 0, "high_limb"),
+    (1, 14, 14, 1, 819_203, 14, False, 0, "uniform"),
+    (4, 17, 17, 2, 65_539, 20, True, 1, "uniform"),
+    (2, 21, 3, 4, 7, 5, True, 0, "maximal"),
+    (5, 26, 32, 1, 2050, 32, False, 5, "high_limb"),
+    (2, 29, 20, 3, 515, 23, True, 0, "near_p"),
+    (3, 32, 32, 4, 3333, 40, True, 2, "maximal"),
+    (2, 32, 32, 96, 517, 33, True, 1, "maximal"),
+]
+
+
+def _rows_plus_operands(case, p=P):
+    batch, m, k, z, n, n_rows, permuted, extra, mode = case
+    rng = np.random.default_rng(m * 1000 + k)
+    draw = lambda shape: torch.as_tensor(_draw(rng, shape, mode, p), dtype=torch.int32)  # noqa: E731
+    a, v = draw((m, k)), draw((m, z))
+    h = draw((batch, n_rows + extra, n))[:, :n_rows]
+    r = draw((batch, z + extra, n))[:, :z]
+    rows = torch.as_tensor(rng.permutation(n_rows)[:k] if permuted else np.arange(k), dtype=torch.int64)
+    return a, h, rows, v, r
+
+
+@pytest.mark.parametrize("case", _ROWS_PLUS_CASES, ids=lambda c: "b{}-m{}-k{}-z{}-n{}".format(*c[:5]))
+@pytest.mark.parametrize("variant", ["int32", "f32"])
+def test_rows_plus_kernel_matches_the_three_step_product(cuda, variant, case):
+    a, h, rows, v, r = _rows_plus_operands(case)
+    want = gf.mod_add(ref.PLAIN[variant](a, h.index_select(-2, rows), P), ref.PLAIN[variant](v, r, P), P)
+    a_d, h_d, rows_d, v_d, r_d = (x.to(cuda) for x in (a, h, rows, v, r))
+    backend = {"int32": "cuda_int32", "f32": "cuda"}[variant]
+    card = gf.mod_add(ops.mod_matmul(a_d, h_d.index_select(-2, rows_d), p=P, backend=backend),
+                      ops.mod_matmul(v_d, r_d, p=P, backend=backend), P)
+    K.reset_launch_counts()
+    got = K.modmatmul_rows_plus_cuda(a_d, h_d, rows_d, v_d, r_d, P, variant)
+    via_ops = ops.mod_matmul_rows_plus(a_d, h_d, rows_d, v_d, r_d, p=P, backend=backend)
+    torch.cuda.synchronize()
+    batch, m, k, z, n = case[:5]
+    assert dict(K.LAUNCH_SHAPES_BY_KERNEL[f"{variant}_skinny"]) == {(batch, m, k + z, n): 2}
+    assert {k_: c for k_, c in K.LAUNCHES_BY_KERNEL.items() if c} == {f"{variant}_skinny": 2}
+    assert torch.equal(got.cpu(), want) and torch.equal(via_ops.cpu(), want)
+    assert torch.equal(card.cpu(), want)
+
+
+def test_rows_plus_kernel_takes_shared_operands_and_refuses_what_it_cannot(cuda):
+    a, h, rows, v, r = (x.to(cuda) for x in _rows_plus_operands(_ROWS_PLUS_CASES[5]))
+    ab = torch.stack([a, (a * 7) % P])  # a batched a against a shared h and r
+    got = K.modmatmul_rows_plus_cuda(ab, h[0], rows, v, r[0], P, "int32")
+    want = ref.modmatmul_rows_plus_plain(ab.cpu(), h[0].cpu(), rows.cpu(), v.cpu(), r[0].cpu(), P)
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="outside the skinny designs"):
+        K.modmatmul_rows_plus_cuda(torch.zeros((33, 17), dtype=torch.int32, device=cuda),
+                                   h, rows, torch.zeros((33, 2), dtype=torch.int32, device=cuda), r)
+    with pytest.raises(ValueError, match="int64"):
+        K.modmatmul_rows_plus_cuda(a, h, rows.int(), v, r)
+    with pytest.raises(ValueError, match="contiguous and N apart"):
+        K.modmatmul_rows_plus_cuda(a, h.transpose(1, 2).contiguous().transpose(1, 2), rows, v, r)
+
+
+@pytest.mark.parametrize("z,spares", [(2, 0), (1, 0), (2, 3)])
+def test_run_batched_reduce_is_bit_identical_to_the_three_step_path(cuda, monkeypatch, z, spares):
+    # AGE 2/2/2 (the q-projection's) and 2/2/1 (the head's) at reduced widths
+    plan = planner.get_plan(constructions.build_scheme("age", 2, 2, z),
+                            planner.BlockShapes(k=256, ma=64, mb=96, s=2, t=2), n_spare=spares)
+    rng = np.random.default_rng(z * 10 + spares)
+    a = torch.as_tensor(rng.integers(0, P, (3, 256, 64)), device=cuda)
+    b = torch.as_tensor(rng.integers(0, P, (3, 256, 96)), device=cuda)
+    ids = (list(rng.permutation(plan.n_total)[: plan.n_workers]) if spares else None)
+    seen = []
+    decode = protocol._decode_batched
+    monkeypatch.setattr(protocol, "_decode_batched",
+                        lambda i_evals, *rest, **kw: seen.append(i_evals.clone()) or decode(i_evals, *rest, **kw))
+
+    def call():
+        K.reset_launch_counts()
+        y, _ = protocol.run_batched(plan, a, b, seed=11, phase2_ids=ids)
+        torch.cuda.synchronize()
+        return y, sum(K.LAUNCHES.values())
+
+    y_one, n_one = call()
+    for mod in (ops, protocol):  # today's path: the selection, mix, noise and mod_add
+        monkeypatch.setattr(mod, "rows_plus_fuses", lambda *args: False)
+    y_three, n_three = call()
+    assert (n_one, n_three) == (5, 6)
+    assert torch.equal(seen[0], seen[1]) and torch.equal(y_one, y_three)
+    want, _ = protocol.run_batched(plan, a.cpu(), b.cpu(), seed=11, phase2_ids=ids, device="cpu")
+    assert torch.equal(y_one.cpu(), want)
+
+
+def test_fuzz_rows_plus_engines_clean(cuda):
+    K.reset_launch_counts()
+    found = fuzz.run_fuzz(examples=32, seed=3, engines=["cuda_rows_plus", "cuda_int32_rows_plus"])
+    assert found == [], "\n".join(m.describe() for m in found)
+    launched = {k for k, v in K.LAUNCHES_BY_KERNEL.items() if v}
+    assert {"int32_skinny", "f32_skinny"} <= launched
 
 
 # ----------------------------------------------------------------------
@@ -337,9 +444,10 @@ def test_secure_matmul_crt_on_the_card_equals_the_cpu_run(cuda, backend, fused):
     assert card.y.device.type == "cuda"
     assert torch.equal(card.y.cpu(), cpu.y)
     variant = "int32" if backend == "auto" else "f32"
-    # twice run_batched's launches: one pass per prime
+    # twice run_batched's launches: one pass per prime (unfused, the
+    # degree reduction is one launch, so 5 a pass)
     expect = ({f"modmatmul_{variant}": 4, f"modmatmul_{variant}_masked": 6} if fused
-              else {f"modmatmul_{variant}": 12})
+              else {f"modmatmul_{variant}": 10})
     assert {k: v for k, v in K.LAUNCHES.items() if v} == expect
     x = rng.integers(-(2**20), 2**20, (40, 300))
     y = rng.integers(-(2**20), 2**20, (300, 33))
