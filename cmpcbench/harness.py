@@ -1,20 +1,27 @@
 """One run of one cell: set-up, the measured window, the check, the result.
 
 Everything a cell is comes from files found by name: its entry in
-``BENCHMARK.json``, its configuration (the entry's ``file``), its traffic
-mix (``traffic/<traffic>.json``, read by ``traffic.py``) and one reader
+``BENCHMARK.json``, its configuration (the entry's ``file``), the
+program the configuration names (``"program"``, by default
+``private_matmul``) as two files, ``programs/<program>.py`` (the port's
+side: ``prepare`` and ``call``) and ``references/<program>.py`` (the
+benchmark's side: the mix fields it reads, the fixed state and each
+call's inputs drawn from the seed, a call's work, the plain answer, its
+control and the count of mismatches), its traffic mix
+(``traffic/<traffic>.json``, checked by ``traffic.py``) and one reader
 per metric (``metrics/<metric>.py``, a ``read(run)`` that returns a
-number or None).  A new cell, mix or metric is new files and entries.
+number or None).  A new cell, mix, program or metric is new files and
+entries.
 
-The window drives the program's entry, ``protocol.run_batched``, with
-new activations every call against one fixed weight, and keeps
-``in_flight`` calls issued: the master issues call i+1, then waits on
-call i's CUDA event.  A call's latency runs from the host clock just
-before its ``run_batched`` to the return of that wait.
+The window draws new inputs for every call (host range ``draw``), hands
+them to the program's ``call`` (host range ``run_batched``, whatever the
+program) and keeps ``in_flight`` calls issued: the master issues call
+i+1, then waits on call i's CUDA event (``wait``).  A call's latency runs
+from the host clock just before its ``call`` to the return of that wait.
 
 Once the window has closed, a sample of its calls drawn from the seed is
-compared, all of each Y, with the plain reference (``reference.py``),
-which works Y out again from the same activations and weight.
+compared, all of each output, with the reference's plain answer, worked
+out again from the same inputs and fixed state.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-from . import reference, roofline, trace, traffic
+from . import trace, traffic
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -37,6 +44,7 @@ FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "repro"})
 SAMPLE_CALLS = 16  # window calls held for the comparison
 WARM_CALLS = 4
 SUBWINDOW_S = 2.0  # the profiled stretch; the profiler loses activity over tens of seconds
+DEFAULT_PROGRAM = "private_matmul"  # of a configuration without "program"
 
 
 def forbidden_modules() -> list:
@@ -45,16 +53,21 @@ def forbidden_modules() -> list:
     return sorted({name.partition(".")[0] for name in sys.modules} & FORBIDDEN)
 
 
-def load_reader(path: Path):
-    spec = importlib.util.spec_from_file_location(f"cmpcbench_metric_{path.stem}", path)
+def load_module(path: Path, kind: str):
+    spec = importlib.util.spec_from_file_location(f"cmpcbench_{kind}_{path.stem}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(path: Path):
+    return load_module(path, "metric").read
 
 
 def load_cell(name: str, trace_on: bool, root: Path = ROOT) -> dict:
     """The cell ``name`` of ``root/BENCHMARK.json`` with its configuration,
-    mix and the readers of the metrics this run reports."""
+    its program's two modules, its mix and the readers of the metrics
+    this run reports."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -63,24 +76,26 @@ def load_cell(name: str, trace_on: bool, root: Path = ROOT) -> dict:
     config_file = {c["name"]: c["file"] for c in bench["configs"]}[cell["config"]]
     here = root / BENCH.name
     config = json.loads((root / config_file).read_text())
-    mix = traffic.check_mix(json.loads((here / "traffic" / f"{cell['traffic']}.json").read_text()))
+    program = config.get("program", DEFAULT_PROGRAM)
+    ref = load_module(here / "references" / f"{program}.py", "reference")
+    mix = traffic.check_mix(json.loads((here / "traffic" / f"{cell['traffic']}.json").read_text()),
+                            ref.FIELDS)
     metrics = [m for m in bench["per_layer" if trace_on else "end_to_end"]
                if name in m.get("workloads", [name])]
     readers = {m["name"]: (m["unit"], load_reader(here / "metrics" / f"{m['name']}.py"))
                for m in metrics}
-    return {"name": name, "chips": cell["chips"], "config": config, "mix": mix, "readers": readers}
+    return {"name": name, "chips": cell["chips"], "config": config, "mix": mix, "readers": readers,
+            "reference": ref, "program": load_module(here / "programs" / f"{program}.py", "program")}
 
 
-def protocol_program(device: torch.device):
-    """The system under test: one call of the program's entry."""
-    from repro_torch.core import protocol
-
-    def call(plan, a, b, index: int) -> torch.Tensor:
-        y, _ = protocol.run_batched(plan, a, b, seed=index, backend="auto",
-                                    fused_masks=False, device=device)
-        return y
-
-    return call
+def control_call(name: str, seed: int, device: torch.device, root: Path = ROOT):
+    """The reference's control in the program's place, as a ``call``: the
+    same work one precision lower, on the fixed state drawn again from
+    ``seed``.  The check has to find it wrong."""
+    cell = load_cell(name, False, root)
+    ref, config = cell["reference"], cell["config"]
+    fixed = ref.fixed(config, cell["mix"], seed, device)
+    return lambda state, inputs, index: ref.control(config, fixed, inputs)
 
 
 class Sample:
@@ -119,42 +134,31 @@ def _sync(device: torch.device) -> None:
 
 
 class Session:
-    """The cell's fixed state and the calls of one run."""
+    """The cell's fixed state, the program's state and the calls of one
+    run.  ``program``, a ``call(state, inputs, index)``, replaces the
+    program's own ``call`` (the control and the planted faults)."""
 
     def __init__(self, cell: dict, seed: int, device: torch.device, program):
-        from repro_torch.core.constructions import build_scheme
-        from repro_torch.core.gf import Field
-        from repro_torch.core.planner import BlockShapes, get_plan
+        self.cell, self.seed, self.device, self.mix = cell, seed, device, cell["mix"]
+        self.config, self.ref = cell["config"], cell["reference"]
+        self.fixed = self.ref.fixed(self.config, self.mix, seed, device)
+        self.state = cell["program"].prepare(self.config, self.mix, self.fixed, device)
+        self.program = program or cell["program"].call
 
-        cfg, mix = cell["config"], cell["mix"]
-        self.cell, self.seed, self.device, self.mix = cell, seed, device, mix
-        self.k, self.mb = cfg["private_matmul"]["k"], cfg["private_matmul"]["mb"]
-        cm = cfg["cmpc"]
-        self.p = cm["p"]
-        if device.type == "cuda":
-            from repro_torch.kernels.modmatmul import kernel
-
-            kernel.load_library()
-        self.w = traffic.weight(seed, self.k, self.mb, self.p, device)
-        # the weight is fixed and every product of a call is against it:
-        # a broadcast view, as secure_matmul_batched hands it in
-        self.b = self.w.expand(mix["batch"], self.k, self.mb)
-        shapes = BlockShapes(self.k, mix["ma"], self.mb, cm["s"], cm["t"])
-        self.plan = get_plan(build_scheme(cm["method"], cm["s"], cm["t"], cm["z"]), shapes,
-                             field=Field(self.p))
-        self.program = program or protocol_program(device)
-        self.tokens = mix["batch"] * mix["ma"]
-        self.ops = roofline.call_ops(mix["batch"], self.k, mix["ma"], self.mb)
+    def inputs(self, stream: int, index: int):
+        return self.ref.inputs(self.config, self.mix, self.fixed, self.seed, stream, index,
+                               self.device)
 
     def issue(self, stream: int, index: int, ann) -> dict:
         with ann("draw"):
-            a = traffic.activations(self.mix, self.seed, stream, index, self.k, self.p, self.device)
+            inputs = self.inputs(stream, index)
+            tokens, ops = self.ref.work(self.config, self.mix, inputs)
         t_issue = time.perf_counter()
         with ann("run_batched"):
-            y = self.program(self.plan, a, self.b, index)
+            y = self.program(self.state, inputs, index)
         t_return = time.perf_counter()
-        return {"index": index, "issue": t_issue, "return": t_return,
-                "event": _mark(self.device), "y": y}
+        return {"index": index, "issue": t_issue, "return": t_return, "tokens": tokens,
+                "ops": ops, "event": _mark(self.device), "y": y}
 
     @staticmethod
     def complete(call: dict, ann) -> None:
@@ -232,20 +236,14 @@ class Session:
         for c in calls:
             for key in ("issue", "return", "done"):
                 c[key] -= t0
-            c["tokens"], c["ops"] = self.tokens, self.ops
         return {"window_s": t1 - t0, "calls": calls, "trace": traced}
 
     def compare(self, sample: Sample) -> dict:
-        """Every residue of each sampled call's Y against the reference."""
+        """All of each sampled call's output against the reference's answer."""
         wrong_calls = mismatched = 0
         for index, y in sorted(sample.slots, key=lambda s: s[0]):
-            a = traffic.activations(self.mix, self.seed, traffic.CALL_STREAM, index, self.k,
-                                    self.p, self.device)
-            want = reference.y_exact(a, self.w, self.p)
-            if tuple(y.shape) != tuple(want.shape):
-                bad = want.numel()
-            else:
-                bad = int((y.to(torch.int64) != want).sum())
+            want = self.ref.expect(self.config, self.fixed, self.inputs(traffic.CALL_STREAM, index))
+            bad = self.ref.mismatches(y, want)
             mismatched += bad
             wrong_calls += bad > 0
         return {
@@ -270,8 +268,8 @@ def breakdown(traced: dict, top: int = 10) -> dict:
 def run(name: str, seed: int, seconds: float, trace_on: bool, *, t_start: float,
         device: torch.device, root: Path = ROOT, program=None, log=None) -> dict:
     """One run of cell ``name``; returns the result line's object.
-    ``program`` replaces the system under test (the control and the
-    planted faults of the tests)."""
+    ``program``, a ``call(state, inputs, index)``, replaces the system
+    under test (the control and the planted faults of the tests)."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     cell = load_cell(name, trace_on, root)
     marks = [("start", t_start), ("imports", time.perf_counter())]
@@ -279,7 +277,7 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, *, t_start: float,
         torch.cuda.set_device(device)
         torch.cuda.reset_peak_memory_stats(device)
     session = Session(cell, seed, device, program)
-    marks.append(("library, weight, plan", time.perf_counter()))
+    marks.append(("fixed state, program", time.perf_counter()))
     session.warm(WARM_CALLS)
     if trace_on:  # the profiler's first start is slow: not inside the window
         prof = trace.start_profile(device.type)

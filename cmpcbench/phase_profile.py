@@ -206,9 +206,9 @@ def tracing_cost(session, seconds: float) -> dict:
 
     program = session.program
 
-    def switched(plan, a, b, index):
+    def switched(state, inputs, index):
         (TRACER.enable if _switched_on(index) else TRACER.disable)()
-        return program(plan, a, b, index)
+        return program(state, inputs, index)
 
     session.program = switched
     TRACER.clear()

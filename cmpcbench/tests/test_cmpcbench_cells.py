@@ -21,8 +21,12 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 def test_every_workload_resolves_to_its_files(cell, trace_on):
     spec = harness.load_cell(cell, trace_on)
     cfg = spec["config"]
-    assert {"k", "mb"} <= set(cfg["private_matmul"])
-    assert {"method", "s", "t", "z", "p"} <= set(cfg["cmpc"])
+    if "program" not in cfg:  # the default program reads these
+        assert {"k", "mb"} <= set(cfg["private_matmul"])
+        assert {"method", "s", "t", "z", "p"} <= set(cfg["cmpc"])
+    program = cfg.get("program", harness.DEFAULT_PROGRAM)
+    for side in ("programs", "references"):
+        assert (ROOT / "cmpcbench" / side / f"{program}.py").is_file()
     entry = next(c for c in BENCH["configs"] if c["name"] == next(
         w["config"] for w in BENCH["workloads"] if w["name"] == cell))
     for key in entry["reduced"]:

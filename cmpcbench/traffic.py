@@ -2,11 +2,15 @@
 
 A mix is a file ``traffic/<name>.json`` of parameters:
 
+* ``in_flight``  calls the master keeps issued ahead of the one it waits on
+                 (read by the harness, in every mix);
 * ``batch``      products per call (clients, or prompts, secured together),
 * ``ma``         tokens per product (rows of A^T),
-* ``in_flight``  calls the master keeps issued ahead of the one it waits on,
 * ``activations`` how the client's activations are drawn; ``"uniform"``:
                  residues uniform in [0, p), the field's full range.
+
+Besides ``in_flight``, a mix holds the fields that its configuration's
+reference names in ``FIELDS`` (``references/<program>.py``), and no other.
 
 Everything is drawn on the device from ``torch.Generator``s seeded from
 the run's ``--seed`` and the call's index, so a seed gives the same
@@ -21,7 +25,7 @@ MASK64 = (1 << 64) - 1
 WEIGHT_STREAM = 1  # the weight's stream; calls use 2, warm-up calls 3
 CALL_STREAM = 2
 WARM_STREAM = 3
-KNOWN_FIELDS = {"batch", "ma", "in_flight", "activations"}
+WHOLE_FIELDS = ("batch", "ma", "in_flight")
 
 
 def mix64(*words: int) -> int:
@@ -36,14 +40,17 @@ def mix64(*words: int) -> int:
     return x >> 1
 
 
-def check_mix(mix: dict) -> dict:
-    unknown = set(mix) - KNOWN_FIELDS
+def check_mix(mix: dict, fields) -> dict:
+    """``mix``, refused where it holds a field outside ``fields`` and
+    ``in_flight``, or where a field read is not a valid value."""
+    read = set(fields) | {"in_flight"}
+    unknown = set(mix) - read
     if unknown:
         raise ValueError(f"traffic mix: unknown fields {sorted(unknown)}")
-    for key in ("batch", "ma", "in_flight"):
+    for key in (k for k in WHOLE_FIELDS if k in read):
         if not isinstance(mix.get(key), int) or mix[key] < 1:
             raise ValueError(f"traffic mix: {key} must be a whole number >= 1")
-    if mix.get("activations") != "uniform":
+    if "activations" in read and mix.get("activations") != "uniform":
         raise ValueError(f"traffic mix: unknown activation draw {mix.get('activations')!r}")
     return mix
 
