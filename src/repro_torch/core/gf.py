@@ -457,25 +457,19 @@ _THREEFRY_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _THREEFRY_PARITY = 0x1BD11BDA
 
 
-def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl32(x, r: int):
     return ((x << r) & U32) | (x >> (32 - r))
 
 
-def threefry2x32(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
-    """Threefry-2x32, 20 rounds (the Random123 / JAX PRNG block cipher).
-
-    ``k0``/``k1`` are the key words (ints); ``c0``/``c1`` are counter
-    tensors.  The word arithmetic is uint32 written out in int64 with an
-    explicit 32-bit wrap.  The 5 x 4 round structure injects the
-    extended key (k0, k1, k0^k1^parity) after every group of four
-    rounds, per the Skein key schedule.  Returns the two output words as
-    int64 tensors in [0, 2**32).
-    """
-    k0 = int(k0) & U32
-    k1 = int(k1) & U32
+def _threefry_rounds(k0: int, k1: int, x0, x1):
+    """Threefry-2x32's 20 rounds on counter words ``x0``/``x1``: int64
+    tensors or Python ints, the uint32 arithmetic written out with an
+    explicit 32-bit wrap.  The 5 x 4 round structure injects the extended
+    key (k0, k1, k0^k1^parity) after every group of four rounds, per the
+    Skein key schedule."""
     ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
-    x0 = (c0.to(torch.int64) + ks[0]) & U32
-    x1 = (c1.to(torch.int64) + ks[1]) & U32
+    x0 = (x0 + ks[0]) & U32
+    x1 = (x1 + ks[1]) & U32
     for g in range(1, 6):
         rots = _THREEFRY_ROT[:4] if g % 2 else _THREEFRY_ROT[4:]
         for r in rots:
@@ -484,6 +478,16 @@ def threefry2x32(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
         x0 = (x0 + ks[g % 3]) & U32
         x1 = (x1 + ks[(g + 1) % 3] + g) & U32
     return x0, x1
+
+
+def threefry2x32(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
+    """Threefry-2x32, 20 rounds (the Random123 / JAX PRNG block cipher).
+
+    ``k0``/``k1`` are the key words (ints); ``c0``/``c1`` are counter
+    tensors.  Returns the two output words as int64 tensors in
+    [0, 2**32).
+    """
+    return _threefry_rounds(int(k0) & U32, int(k1) & U32, c0.to(torch.int64), c1.to(torch.int64))
 
 
 Key = Tuple[int, int]
@@ -498,21 +502,18 @@ def prng_key(seed: int) -> Key:
 def split(key: Key, n: int = 2) -> List[Key]:
     """``jax.random.split(key, n)`` under threefry's partitionable mode:
     subkey i is the output word pair of threefry2x32(key, (0, i)).  Runs
-    on the host (the ``gf.split`` span)."""
+    on the host in Python integers (the ``gf.split`` span): a few hundred
+    integer operations, where torch operators on tiny tensors cost
+    microseconds each."""
     with TRACER.span("gf.split"):
-        ctr = torch.arange(n, dtype=torch.int64)
-        x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(ctr), ctr)
-        return [(int(w0), int(w1)) for w0, w1 in zip(x0.tolist(), x1.tolist())]
+        k0, k1 = int(key[0]) & U32, int(key[1]) & U32
+        return [_threefry_rounds(k0, k1, 0, i) for i in range(n)]
 
 
 def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in(key, data)`` under threefry: the output word
     pair of threefry2x32(key, (0, data mod 2**32))."""
-    x0, x1 = threefry2x32(
-        key[0], key[1], torch.zeros(1, dtype=torch.int64),
-        torch.tensor([int(data) & U32], dtype=torch.int64),
-    )
-    return (int(x0[0]), int(x1[0]))
+    return _threefry_rounds(int(key[0]) & U32, int(key[1]) & U32, 0, int(data) & U32)
 
 
 def field_mask(key: Key, shape: tuple, p: int = P_DEFAULT, device="cpu") -> torch.Tensor:

@@ -6,6 +6,10 @@ ranked within their expert, dropped past capacity, placed into a dense
 [groups, experts, capacity, d] buffer, run through batched expert
 matmuls, and combined back with the router gates.
 
+``route_noaux_tc`` is DeepSeek-V3's group-limited sigmoid route, which
+the reference lacks; the private MoE layer (``core/moe.py``) routes
+with it.
+
 Deliberate differences, each giving the reference's numbers:
 
 * *Top-k.* ``jax.lax.top_k`` puts the lower index first among equal
@@ -90,6 +94,44 @@ def route(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, tor
     top, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates = top[..., :k]
     return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), eidx[..., :k]
+
+
+def route_noaux_tc(
+    logits: torch.Tensor, bias: torch.Tensor, k: int, n_group: int, topk_group: int,
+    scaling: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates, expert ids) of DeepSeek-V3's ``noaux_tc`` route from router
+    logits [..., e]: sigmoid scores; the correction ``bias`` [e] added for
+    the selection only; each of ``n_group`` groups scored by the sum of its
+    two largest biased scores; the ``topk_group`` best groups kept; the
+    ``k`` largest biased scores within them chosen.  The gates are the
+    chosen experts' unbiased scores over their sum, times ``scaling``
+    (``norm_topk_prob`` true, ``routed_scaling_factor``).
+
+    Every selection is a stable descending sort, so the lower group or
+    expert id comes first among equal scores.  The ids come back in
+    ascending order, and the gates' denominator is added up in that
+    order, one expert at a time, so that it does not depend on how a
+    device's reduction is split.  Experts outside the kept groups are
+    masked with -inf (the published code fills them with 0.0, which
+    differs only where a kept expert's biased score is negative)."""
+    scores = torch.sigmoid(logits)
+    biased = scores + bias
+    e = biased.shape[-1]
+    per_group = e // n_group
+    grouped = biased.unflatten(-1, (n_group, per_group))
+    top2 = torch.sort(grouped, dim=-1, descending=True, stable=True).values
+    group_scores = top2[..., 0] + top2[..., 1]
+    kept = torch.sort(group_scores, dim=-1, descending=True, stable=True).indices[..., :topk_group]
+    keep = torch.zeros_like(group_scores, dtype=torch.bool).scatter_(-1, kept, True)
+    masked = biased.masked_fill(~keep.repeat_interleave(per_group, dim=-1), float("-inf"))
+    chosen = torch.sort(masked, dim=-1, descending=True, stable=True).indices[..., :k]
+    ids = torch.sort(chosen, dim=-1).values
+    gates = torch.gather(scores, -1, ids)
+    den = gates[..., 0]
+    for j in range(1, k):
+        den = den + gates[..., j]
+    return gates / den[..., None] * scaling, ids
 
 
 def dispatch(eidx: torch.Tensor, e: int, cap: int):
