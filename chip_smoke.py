@@ -532,7 +532,9 @@ def site_table(plan, batch: int) -> dict:
 # the kernel each site launches, unfused and fused.  Unfused, the degree
 # reduction is one loaded-rows launch, REDUCE_SITE, in the place of "P2
 # mix" and "P2 noise" (which stay in site_table for --variant-path and
-# the parent trees it times)
+# the parent trees it times), and each share is one blocks-form launch
+# at its site's counted shape (measure_site hands it to
+# measure_share_site)
 UNFUSED_SITES = ("P1 share A", "P1 share B", "P2 multiply", "P3 decode")
 FUSED_MASKED = ("P1 share A", "P1 share B", "P2 mix")
 FUSED_PLAIN = ("P2 multiply", "P3 decode")
@@ -554,6 +556,36 @@ def reduce_operands(torch, gen, plan, batch: int) -> tuple:
     a, h, v, r = (torch.randint(0, P, s, generator=gen, device="cuda", dtype=torch.int32)
                   for s in (sa, sh, sv, sr))
     return a, h, torch.arange(sa[1], device="cuda"), v, r
+
+
+def share_blocks_operands(torch, gen, protocol, plan, batch: int) -> dict:
+    """Random operands of run_batched's two blocks-form share launches on
+    the card, as ``_share`` passes them: site -> (a, x, offsets, bc, ld,
+    v, r), x being A^T [batch, ma, k] or B [batch, k, mb]."""
+    dp = protocol.device_plan(plan, "cuda")
+    sh, z = plan.shapes, plan.scheme.z
+    (bra, bca), (brb, bcb) = sh.blk_a, sh.blk_b
+    rand = lambda shape: torch.randint(0, P, shape, generator=gen, device="cuda",  # noqa: E731
+                                       dtype=torch.int32)
+    return {
+        "P1 share A": (dp.va_blocks, rand((batch, sh.ma, sh.k)), dp.a_offsets, bca, sh.k,
+                       dp.va_secrets, rand((batch, z, bra * bca))),
+        "P1 share B": (dp.vb_blocks, rand((batch, sh.k, sh.mb)), dp.b_offsets, bcb, sh.mb,
+                       dp.vb_secrets, rand((batch, z, brb * bcb))),
+    }
+
+
+def blocks_share(protocol, ops, plan, site: str, variant: str) -> bool:
+    """Whether ``site`` is a Phase-1 share that ``protocol._share``
+    launches as the blocks form: an unmasked share of ``run_batched`` or
+    ``share_batched`` (every share site but the per-product edge path's
+    E1) whose plan passes ``ops.skinny_fuses`` on the card."""
+    if site[0] == "E" or not site[1:].startswith("1 share "):
+        return False
+    backend = {"int32": "cuda_int32", "f32": "cuda"}[variant]
+    sch = plan.scheme
+    return (protocol.device_plan(plan, "cuda").va_blocks is not None
+            and ops.skinny_fuses(backend, "cuda", plan.n_total, sch.t * sch.s, sch.z))
 
 
 def reduce_launch_shape(plan, batch: int) -> tuple:
@@ -832,6 +864,15 @@ def phase_variant_path(torch, K, ref, protocol, planner, constructions, args) ->
             "ms": cuda_ms(torch, kern, reps), "device_ms": device_ms(torch, kern, reps)}
         del x, h, v, r
         torch.cuda.empty_cache()
+    if hasattr(K, "modmatmul_blocks_plus_cuda"):  # a parent tree may predate the form
+        for site, ops_ in share_blocks_operands(torch, gen, protocol, plan, batch).items():
+            kern = lambda: K.modmatmul_blocks_plus_cuda(*ops_, P, variant)  # noqa: E731
+            if not torch.equal(kern(), ref.modmatmul_blocks_plus_plain(*ops_, P, variant)):
+                raise AssertionError(f"{variant} blocks kernel != plain version at {site}")
+            result["sites"][f"{site} blocks_plus"] = {
+                "ms": cuda_ms(torch, kern, reps), "device_ms": device_ms(torch, kern, reps)}
+        del ops_
+        torch.cuda.empty_cache()
     backend = {"int32": "cuda_int32", "f32": "cuda"}[variant]
     for fused in (False, True):
         tag = "fused" if fused else "unfused"
@@ -897,12 +938,19 @@ def check_site(torch, K, ref, gen, what, variant, masked, sa, sb, z, plain_cols=
 
 
 def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_launch, args,
-                 plain_cols=0) -> dict:
+                 plain_cols=0, blocks=None) -> dict:
     """One launch site of ``variant`` on random inputs of its shape: the
     kernel against its plain version (over column slices of
     ``plain_cols``, if given: ``check_site``), then its times, bound and
     library call; logs a ``[timing]`` line and returns the ``kernels``
-    entry."""
+    entry.  ``blocks`` = (protocol, ops, plan) for a path through
+    ``protocol._share``: an unmasked share there that launches the blocks
+    form (``blocks_share``) is measured as that launch instead
+    (``measure_share_site``)."""
+    if blocks is not None and not masked and blocks_share(*blocks, site, variant):
+        protocol, _, plan = blocks
+        return measure_share_site(torch, K, ref, gen, protocol, variant, plan, site, sa, sb,
+                                  n_launch, args, plain_cols)
     shape = geometry(sa, sb)
     design = K.choose_design(variant, masked, *shape, z if masked else 0)
     compiled = f"{variant}_{design}" + ("_masked" if masked else "")
@@ -930,6 +978,7 @@ def measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z, n_l
         "design": design,
         "site": site,
         "shape": f"{list(sa)}@{list(sb)}" + (f"+v{[sa[-2], z]}" if masked else ""),
+        "geometry": list(shape),
         "route": "cuda",
         "source": SOURCES[base],
         "replaces": TPU_KERNELS[name],
@@ -986,6 +1035,7 @@ def measure_reduce_site(torch, K, ref, gen, variant, plan, batch, n_launch, args
         "design": "skinny",
         "site": REDUCE_SITE,
         "shape": f"{list(sa)}@{list(sh)}[:{sa[1]}]+{list(sv)}@{list(sr)}",
+        "geometry": [B, M, Kt, N],
         "route": "cuda",
         "source": SOURCES[f"{variant}_skinny"],
         "replaces": TPU_KERNELS[f"modmatmul_{variant}"],
@@ -1006,7 +1056,89 @@ def measure_reduce_site(torch, K, ref, gen, variant, plan, batch, n_launch, args
     return entry
 
 
-def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
+def check_share_site(torch, K, ref, gen, protocol, variant, plan, site, sa, sb, plain_cols=0):
+    """Random operands of the share ``site`` (A or B by its last letter)
+    as ``_share`` passes them to the blocks form, at the batch of its
+    counted shape ``geometry(sa, sb)``: the launch against its plain
+    version (over column slices of whole block rows, ``plain_cols`` wide
+    or more, if given); raises unless they agree exactly.  Returns the
+    operands, the two calls and the error (0)."""
+    batch = geometry(sa, sb)[0]
+    ops_ = share_blocks_operands(torch, gen, protocol, plan, batch)[f"P1 share {site[9]}"]
+    a, x, offsets, bc, ld, v, r = ops_
+    n = int(r.shape[-1])
+    if (batch, a.shape[0], a.shape[1] + v.shape[1], n) != geometry(sa, sb):
+        raise AssertionError(f"{site}: blocks operands {list(a.shape)} {list(r.shape)} are not "
+                             f"the counted {geometry(sa, sb)}")
+    step = max(bc, plain_cols // bc * bc) if plain_cols else n
+    kern = lambda: K.modmatmul_blocks_plus_cuda(*ops_, P, variant)  # noqa: E731
+
+    def parts():  # output columns [c0, c0 + step) are block rows c0 / bc on
+        for c0 in range(0, n, step):
+            yield c0, ref.modmatmul_blocks_plus_plain(
+                a, x, offsets + (c0 // bc) * ld, bc, ld, v, r[..., c0:c0 + step], P, variant)
+
+    got = kern()
+    err = 0
+    for c0, exp in parts():
+        err = max(err, int((got[..., c0:c0 + step].to(torch.int64) - exp.to(torch.int64)).abs().max()))
+    torch.cuda.synchronize()
+    del got
+    if err:
+        raise AssertionError(f"{variant} blocks kernel at {site}: max abs error {err} against plain")
+    plain = lambda: collections.deque(parts(), maxlen=0)  # noqa: E731
+    return ops_, kern, plain, err
+
+
+def measure_share_site(torch, K, ref, gen, protocol, variant, plan, site, sa, sb, n_launch, args,
+                       plain_cols=0) -> dict:
+    """A Phase-1 share ``site`` that ``_share`` launches as the blocks
+    form (``blocks_share``): the launch against its plain version
+    (``check_share_site``), then its times and bound (no single library
+    call computes it); logs a ``[timing]`` line and returns the
+    ``kernels`` entry, counted at the site's shape."""
+    ops_, kern, plain, err = check_share_site(torch, K, ref, gen, protocol, variant, plan, site,
+                                              sa, sb, plain_cols)
+    a, x, offsets, bc, ld, v, r = ops_
+    reps = args.reps
+    ms, dev_ms = cuda_ms(torch, kern, reps), device_ms(torch, kern, reps)
+    plain_ms = cuda_ms(torch, plain, reps)
+    B, M, Kt, N = geometry(sa, sb)
+    # the blocks read in place (K of them, N each) and the z rows of r,
+    # the coefficients, the output: the stack form's bytes
+    nbytes = 4 * (M * Kt + B * Kt * N + B * M * N)
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, 8 * B * M * Kt * N / INT8_TC_OPS * 1e3
+    entry = {
+        "name": f"modmatmul_{variant}",
+        "kernel": f"{variant}_skinny",
+        "design": "skinny",
+        "site": site,
+        "shape": (f"{list(a.shape)}@blocks{list(x.shape)}(bc {bc}, ld {ld})"
+                  f"+{list(v.shape)}@{list(r.shape)}"),
+        "geometry": [B, M, Kt, N],
+        "route": "cuda",
+        "source": SOURCES[f"{variant}_skinny"],
+        "replaces": TPU_KERNELS[f"modmatmul_{variant}"],
+        "launches": n_launch,
+        "max_abs_err": err,
+        "ms": round(ms, 4),
+        "device_ms": round(dev_ms, 4),
+        "plain_ms": round(plain_ms, 4),
+        "bound_ms": round(max(t_bytes, t_ops), 4),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    if plain_cols:
+        entry["plain_cols"] = max(bc, plain_cols // bc * bc)
+    log(f"[timing] {entry['kernel']:20s} {site:12s} {entry['shape']:44s} "
+        f"{ms:9.3f} ms  device {entry['device_ms']}  plain {plain_ms:9.3f}  "
+        f"bound {entry['bound_ms']:7.3f} ({entry['bound_by']})  library None")
+    del a, x, v, r, ops_
+    torch.cuda.empty_cache()
+    return entry
+
+
+def site_entries(torch, K, ref, protocol, ops, run: dict, variant: str, args) -> list:
     plan, batch = run["plan"], run["batch"]
     sites = site_table(plan, batch)
     z = plan.scheme.z
@@ -1031,7 +1163,7 @@ def site_entries(torch, K, ref, run: dict, variant: str, args) -> list:
                 seen[key]["launches"] += n_launch
                 continue
             entry = measure_site(torch, K, ref, gen, name, variant, masked, site, sa, sb, z,
-                                 n_launch, args)
+                                 n_launch, args, blocks=(protocol, ops, plan))
             seen[key] = entry
             entries.append(entry)
     n_launch = run["counts"][False][f"{variant}_skinny"].get(reduce_launch_shape(plan, batch), 0)
@@ -1380,9 +1512,10 @@ def phase_edge_reduced(torch, K, planner, constructions, runtime, args) -> None:
         f"(Y and every metric): {sorted(calls)}")
 
 
-def edge_entries(torch, K, ref, edge: dict, args) -> list:
+def edge_entries(torch, K, ref, protocol, ops, edge: dict, args) -> list:
     """The edge runtime's launch sites for the ``kernels`` line, with their
-    launches per ``run_over_pool`` / ``run_batch_over_pool`` call."""
+    launches per ``run_over_pool`` / ``run_batch_over_pool`` call (the
+    latter's shares through ``_share``)."""
     plan, batch = edge["plan"], edge["batch"]
     sites = edge_sites(plan, batch)
     gen = torch.Generator(device="cuda")
@@ -1401,7 +1534,8 @@ def edge_entries(torch, K, ref, edge: dict, args) -> list:
             if n_launch < 1:
                 raise AssertionError(f"{compiled} never launched at edge site {site} {shape}")
             entries.append(measure_site(torch, K, ref, gen, f"modmatmul_{variant}", variant,
-                                        False, site, sa, sb, plan.scheme.z, n_launch, args))
+                                        False, site, sa, sb, plan.scheme.z, n_launch, args,
+                                        blocks=(protocol, ops, plan)))
     return entries
 
 
@@ -1611,7 +1745,7 @@ def serve_sites(plan, batch: int) -> dict:
             if name.startswith("B")}
 
 
-def serve_entries(torch, K, ref, serve_run: dict, args) -> list:
+def serve_entries(torch, K, ref, protocol, ops, serve_run: dict, args) -> list:
     """The serving replays' launch sites for the ``kernels`` line: each
     site of a one-request replay, timed, with its launches over the
     [serve] runs of its variant; every other shape those runs launched
@@ -1642,10 +1776,14 @@ def serve_entries(torch, K, ref, serve_run: dict, args) -> list:
                 if counts.get(key, 0) < 1:
                     raise AssertionError(f"{key[0]} never launched at serving site {site} {key[1]}")
                 entries.append(measure_site(torch, K, ref, gen, f"modmatmul_{variant}", variant,
-                                            False, site, sa, sb, plan.scheme.z, counts[key], args))
+                                            False, site, sa, sb, plan.scheme.z, counts[key], args,
+                                            blocks=(protocol, ops, plan)))
             elif key in counts:
-                check_site(torch, K, ref, gen, f"{key[0]} at {site} of a {batch}-request replay",
-                           variant, False, sa, sb, plan.scheme.z)
+                if blocks_share(protocol, ops, plan, site, variant):
+                    check_share_site(torch, K, ref, gen, protocol, variant, plan, site, sa, sb)
+                else:
+                    check_site(torch, K, ref, gen, f"{key[0]} at {site} of a {batch}-request replay",
+                               variant, False, sa, sb, plan.scheme.z)
                 log(f"[serve sites] {key[0]} {site} {list(sa)}@{list(sb)} ({batch} requests, "
                     f"{counts[key]} launches): exact against plain")
                 torch.cuda.empty_cache()
@@ -2206,7 +2344,7 @@ def model_sites(plan, prefix: str) -> dict:
             if name.startswith("B")}
 
 
-def model_entries(torch, K, ref, model_run: dict, args) -> list:
+def model_entries(torch, K, ref, protocol, ops, model_run: dict, args) -> list:
     """The lm-head replays' launch sites for the ``kernels`` line (the
     ``[model]`` / ``[moe]`` phase asserted their launches shape by
     shape), each timed and held against its plain version, in column
@@ -2221,7 +2359,7 @@ def model_entries(torch, K, ref, model_run: dict, args) -> list:
         cols = PLAIN_COLS if b_ * m_ * n_ > PLAIN_SLICE_ELEMS else 0
         entries.append(measure_site(torch, K, ref, gen, "modmatmul_int32", "int32", False, site,
                                     sa, sb, plan.scheme.z, counts[compiled][shape], args,
-                                    plain_cols=cols))
+                                    plain_cols=cols, blocks=(protocol, ops, plan)))
     return entries
 
 
@@ -3292,13 +3430,14 @@ def sharded_one_rank(torch, K, ref, protocol, distributed, planner, construction
         f"{mesh.mesh_dim_names} on {mesh.device_type}; AGE s=t=z=2, n_total={plan.n_total} "
         f"(npad {plan.n_total} at d = 1); a [{batch}, {k}, 512], b [{batch}, {k}, 4096]")
     counts: collections.Counter = collections.Counter()
-    sites_of: dict = {}  # (compiled, shape) -> (site, a shape, b shape, variant)
+    sites_of: dict = {}  # (compiled, shape) -> (site, a shape, b shape, variant, plan)
     times: dict = {}
     modules = {"protocol": protocol, "scheduler": scheduler, "distributed": distributed}
 
-    def note(tag, sites, names, variant, expect=None):
+    def note(tag, sites, names, variant, site_plan, expect=None):
         """The launches since the counts were zeroed, exactly those of the
-        sites ``names`` (or ``expect``); added to the phase's counts."""
+        sites ``names`` (or ``expect``) of ``site_plan``; added to the
+        phase's counts."""
         got = launched_shapes(K)
         expect = expect if expect is not None else expected_shapes(K, sites, names, variant)
         if got != expect:
@@ -3310,7 +3449,7 @@ def sharded_one_rank(torch, K, ref, protocol, distributed, planner, construction
             sa, sb = sites[site]
             shape = geometry(sa, sb)
             sites_of.setdefault((f"{variant}_{K.choose_design(variant, False, *shape)}", shape),
-                                (site, sa, sb, variant))
+                                (site, sa, sb, variant, site_plan))
         return got
 
     def check_y(y, y_want, tag):
@@ -3336,7 +3475,7 @@ def sharded_one_rank(torch, K, ref, protocol, distributed, planner, construction
             y, _ = call()
             torch.cuda.synchronize()
             peaks[tag] = torch.cuda.max_memory_allocated()
-            got = note(tag, xsites, X_SITES, variant)
+            got = note(tag, xsites, X_SITES, variant, plan)
             check_y(y, want_h, tag)
             del y
             times[tag] = {"median_ms": round(median_event_ms(torch, call, args.reps), 3),
@@ -3354,7 +3493,7 @@ def sharded_one_rank(torch, K, ref, protocol, distributed, planner, construction
     y, _ = protocol.run_batched_sharded(plan20, a, b, mesh, mode="psum_scatter", seed=args.seed,
                                         phase2_ids=ids2, phase3_ids=ids3)
     torch.cuda.synchronize()
-    note(tag, sharded_sites(plan20, batch, 1), X_SITES, "int32")
+    note(tag, sharded_sites(plan20, batch, 1), X_SITES, "int32", plan20)
     check_y(y, want_h, tag)
     del y
     log(f"[{tag}] n_total {plan20.n_total}, senders {ids2.tolist()}, responders "
@@ -3388,7 +3527,7 @@ def sharded_one_rank(torch, K, ref, protocol, distributed, planner, construction
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     esites = {**edge_sites(plan20, batch), **sharded_sites(plan20, batch, 1)}
-    note(tag, esites, ("B1 share A", "B1 share B", "X2 multiply"), "int32")
+    note(tag, esites, ("B1 share A", "B1 share B", "X2 multiply"), "int32", plan20)
     check_y(run.y, want_h, tag)
     m = run.metrics
     if 1 not in m.corrected_workers.tolist() or 0 in m.phase2_ids.tolist():
@@ -3437,8 +3576,8 @@ def sharded_one_rank(torch, K, ref, protocol, distributed, planner, construction
         for site in names:
             shape = geometry(*ssites[site])
             sites_of.setdefault((f"int32_{K.choose_design('int32', False, *shape)}", shape),
-                                (f"{site} ({nb} req)", *ssites[site], "int32"))
-    note(tag, None, (), "int32", expect={n: dict(c) for n, c in allowed.items()})
+                                (f"{site} ({nb} req)", *ssites[site], "int32", splan))
+    note(tag, None, (), "int32", splan, expect={n: dict(c) for n, c in allowed.items()})
     split["per_replay_wall_ms"] = round(split["wall_ms"] / rep.replays, 3)
     times[tag] = {"split": split, "replays": rep.replays, "summary": rep.summary()}
     log(f"[{tag}] {len(xs)} requests of [serve] over mesh (psum), replays of {sizes} requests: "
@@ -3556,32 +3695,28 @@ def sharded_ranks(torch, K, one_rank: dict, args) -> dict:
     site = sharded_sites(plan, batch, d)["X2 multiply"]
     key = (f"int32_{K.choose_design('int32', False, *x2)}", x2)
     one_rank["counts"][key] += len(SHARDED_MODES)  # rank 0's counted calls
-    one_rank["sites"].setdefault(key, (f"X2 multiply (d={d})", *site, "int32"))
+    one_rank["sites"].setdefault(key, (f"X2 multiply (d={d})", *site, "int32", plan))
     log(f"[sharded d={d}] {d} gloo ranks on one card, n_total {plan.n_total} padded to "
         f"{plan.n_total + (-plan.n_total) % d}: every rank exact, {secs:.1f} s with start-up")
     return {"d": d, "seconds": round(secs, 1), "ranks": ranks}
 
 
-def sharded_entries(torch, K, ref, sharded: dict, entries: list, args) -> list:
+def sharded_entries(torch, K, ref, protocol, ops, sharded: dict, entries: list, args) -> list:
     """The [sharded] phase's launch shapes on the ``kernels`` line: a shape
-    the line already holds (by kernel and geometry) is logged with its
-    launches; any other is timed and held against its plain version."""
-    held = set()
-    for e in entries:
-        sa, sb = (json.loads(x) for x in e["shape"].split("+")[0].split("@"))
-        held.add((e["kernel"], geometry(sa, sb)))
+    the line already holds (by kernel and counted geometry) is logged with
+    its launches; any other is timed and held against its plain version."""
+    held = {(e["kernel"], tuple(e["geometry"])) for e in entries}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed + 13)
-    z = sharded["plan"].scheme.z
     new = []
     for key, n in sorted(sharded["counts"].items()):
-        site, sa, sb, variant = sharded["sites"][key]
+        site, sa, sb, variant, plan = sharded["sites"][key]
         if key in held:
             log(f"[sharded sites] {key[0]:14s} {site:24s} {list(sa)}@{list(sb)}: {n} launches "
                 "over the phase's counted calls, a shape the kernels line holds")
             continue
         new.append(measure_site(torch, K, ref, gen, f"modmatmul_{variant}", variant, False, site,
-                                sa, sb, z, n, args))
+                                sa, sb, plan.scheme.z, n, args, blocks=(protocol, ops, plan)))
     return new
 
 
@@ -4453,14 +4588,14 @@ def main() -> int:
     train_run = timed_phase("train", phase_train, torch, K)
     mesh_run = timed_phase("mesh", phase_mesh, torch, K, train_run["steps"][0]["loss"], args)
     dryrun_run = timed_phase("dryrun", phase_dryrun, torch, args, mesh_run)
-    entries = site_entries(torch, K, ref, main_run, "int32", args)
-    entries += site_entries(torch, K, ref, f32_run, "f32", args)
-    entries += edge_entries(torch, K, ref, edge_run, args)
-    entries += serve_entries(torch, K, ref, serve_run, args)
-    entries += model_entries(torch, K, ref, model_run, args)
-    entries += model_entries(torch, K, ref, moe_run, args)
-    entries += model_entries(torch, K, ref, vlm_run, args)
-    entries += sharded_entries(torch, K, ref, sharded_run, entries, args)
+    entries = site_entries(torch, K, ref, protocol, ops, main_run, "int32", args)
+    entries += site_entries(torch, K, ref, protocol, ops, f32_run, "f32", args)
+    entries += edge_entries(torch, K, ref, protocol, ops, edge_run, args)
+    entries += serve_entries(torch, K, ref, protocol, ops, serve_run, args)
+    entries += model_entries(torch, K, ref, protocol, ops, model_run, args)
+    entries += model_entries(torch, K, ref, protocol, ops, moe_run, args)
+    entries += model_entries(torch, K, ref, protocol, ops, vlm_run, args)
+    entries += sharded_entries(torch, K, ref, protocol, ops, sharded_run, entries, args)
     for name in K.KERNEL_NAMES:
         if not any(e["name"] == name and e["launches"] > 0 for e in entries):
             raise AssertionError(f"kernel {name} was not launched on its path")

@@ -51,11 +51,12 @@ import torch
 
 from ..kernels.modmatmul.ops import (
     mod_matmul,
+    mod_matmul_blocks_plus,
     mod_matmul_masked,
     mod_matmul_rows_plus,
     polyeval,
     polyeval_masked,
-    rows_plus_fuses,
+    skinny_fuses,
 )
 from ..obs.metrics import REGISTRY
 from ..obs.tracer import TRACER
@@ -220,6 +221,14 @@ class DevicePlan:
     Share Vandermondes, the Phase-2 mixing matrix (pre-transposed), the
     blinding Vandermonde and the Phase-3 decode matrix as int32; the
     block scatter maps and default worker sets as int64 index tensors.
+
+    The share's blocks form (``_share`` where ``skinny_fuses`` holds)
+    reads the Vandermondes' columns split into the data blocks' and the
+    secrets' (``va_blocks`` = va[:, a_pos], ``va_secrets`` = va[:, sa_pos],
+    the same for B) and each data block's element offset in A^T [ma, k]
+    or B [k, mb] (``a_offsets``, ``b_offsets``).  They depend on the
+    plan's block shapes, so only ``device_plan`` builds them; a
+    DevicePlan made from bare arrays without them keeps the stack path.
     """
 
     va: torch.Tensor  # [n_total, |P(F_A)|]
@@ -238,11 +247,21 @@ class DevicePlan:
     sa_pos_h: np.ndarray = None
     b_pos_h: np.ndarray = None
     sb_pos_h: np.ndarray = None
+    # the share's blocks form (None: the stack path)
+    va_blocks: Optional[torch.Tensor] = None  # [n_total, t*s] va[:, a_pos]
+    va_secrets: Optional[torch.Tensor] = None  # [n_total, z]  va[:, sa_pos]
+    vb_blocks: Optional[torch.Tensor] = None  # [n_total, s*t] vb[:, b_pos]
+    vb_secrets: Optional[torch.Tensor] = None  # [n_total, z]  vb[:, sb_pos]
+    a_offsets: Optional[torch.Tensor] = None  # [t*s] block (i,j) -> element offset in A^T
+    b_offsets: Optional[torch.Tensor] = None  # [s*t] block (k,l) -> element offset in B
 
 
 # fields holding field elements (int32) vs index maps (int64)
 CONST_FIELDS = ("va", "vb", "mix_t", "vnoise", "decode_w")
 INDEX_FIELDS = ("a_pos", "sa_pos", "b_pos", "sb_pos", "ids2", "ids3")
+# the share's blocks form, built from the plan's shapes by device_plan_arrays
+SHARE_CONST_FIELDS = ("va_blocks", "va_secrets", "vb_blocks", "vb_secrets")
+SHARE_INDEX_FIELDS = ("a_offsets", "b_offsets")
 # index maps the numpy share path also keeps on the host (``<name>_h``)
 HOST_FIELDS = ("a_pos", "sa_pos", "b_pos", "sb_pos")
 
@@ -274,26 +293,53 @@ def device_plan_arrays(plan: CMPCPlan) -> dict:
     fb_index = {u: idx for idx, u in enumerate(sch.fb_powers)}
     for (k, l), u in bmap.items():
         b_pos[k * sch.t + l] = fb_index[u]
+    sa_pos = _positions(sch.fa_powers, sch.sa)
+    sb_pos = _positions(sch.fb_powers, sch.sb)
+    sh = plan.shapes
+    bra, bca = sh.ma // sch.t, sh.k // sch.s  # A^T [ma, k]: t x s blocks, rows k apart
+    brb, bcb = sh.k // sch.s, sh.mb // sch.t  # B [k, mb]: s x t blocks, rows mb apart
+    va, vb = plan.va % p, plan.vb % p
     return dict(
-        va=plan.va % p,
-        vb=plan.vb % p,
+        va=va,
+        vb=vb,
         mix_t=plan.mix.T % p,
         vnoise=plan.vnoise % p,
         decode_w=plan.decode_w % p,
         a_pos=a_pos,
-        sa_pos=_positions(sch.fa_powers, sch.sa),
+        sa_pos=sa_pos,
         b_pos=b_pos,
-        sb_pos=_positions(sch.fb_powers, sch.sb),
+        sb_pos=sb_pos,
         ids2=np.arange(plan.n_workers),
         ids3=np.arange(plan.decode_threshold),
+        va_blocks=va[:, a_pos],
+        va_secrets=va[:, sa_pos],
+        vb_blocks=vb[:, b_pos],
+        vb_secrets=vb[:, sb_pos],
+        a_offsets=_block_offsets(sch.t, sch.s, bra, bca, sh.k, sh.ma * sh.k),
+        b_offsets=_block_offsets(sch.s, sch.t, brb, bcb, sh.mb, sh.k * sh.mb),
     )
 
 
+def _block_offsets(nr: int, nc: int, br: int, bc: int, ld: int, extent: int) -> np.ndarray:
+    """Element offsets of the nr x nc blocks [br, bc] of a row-major
+    matrix of ``extent`` elements, rows ``ld`` apart, block (i, j) at
+    i * nc + j.  Raises where a block would leave the matrix: the
+    blocks-form launch reads the offsets unchecked."""
+    offs = np.array([i * br * ld + j * bc for i in range(nr) for j in range(nc)], np.int64)
+    if nc * bc > ld or int(offs.max()) + (br - 1) * ld + bc > extent:
+        raise ValueError(f"{nr} x {nc} blocks [{br}, {bc}], rows {ld} apart, leave a matrix of "
+                         f"{extent} elements")
+    return offs
+
+
 def device_plan_from_arrays(arrays: dict, device) -> DevicePlan:
-    """Upload DevicePlan fields given as numpy arrays to ``device``."""
+    """Upload DevicePlan fields given as numpy arrays to ``device``; the
+    share's blocks-form fields only where ``arrays`` holds them."""
     fields = {k: _const(arrays[k], device) for k in CONST_FIELDS}
     fields.update({k: _index(arrays[k], device) for k in INDEX_FIELDS})
     fields.update({f"{k}_h": np.array(arrays[k], np.int64) for k in HOST_FIELDS})
+    fields.update({k: _const(arrays[k], device) for k in SHARE_CONST_FIELDS if k in arrays})
+    fields.update({k: _index(arrays[k], device) for k in SHARE_INDEX_FIELDS if k in arrays})
     return DevicePlan(**fields)
 
 
@@ -335,6 +381,18 @@ def _share(a, b, key: Key, dp: DevicePlan, *, p, s, t, z, na, nb, backend, fused
 
     a: [batch, k, ma], b: [batch, k, mb] int32 in [0, p).  Returns
     (F_A(alpha_n), F_B(alpha_n)) stacked [batch, n_total, ., .].
+
+    Without ``fused_masks``, where ``skinny_fuses`` holds (a kernel backend
+    on the card, n_total <= 32, t*s <= 32, t*s + z <= 128) and ``dp``
+    has the blocks-form fields, each operand is one
+    ``mod_matmul_blocks_plus``: F = V[:, pos] @ blocks + V[:, spos] @ R,
+    B's blocks read where they lie in b and A's in one contiguous copy
+    of A^T, the z secrets drawn as below and read as loaded rows.  The
+    ``REGISTRY`` counter ``protocol.share.fused`` or
+    ``protocol.share.unfused`` counts which, once a call.  Elsewhere (and
+    with ``fused_masks``) the blocks are scattered into a zero-filled
+    coefficient stack, the secrets into its secret rows, and ``polyeval``
+    runs V @ stack.  Both give the same integers.
     """
     batch, k, ma = a.shape
     mb = b.shape[-1]
@@ -342,6 +400,23 @@ def _share(a, b, key: Key, dp: DevicePlan, *, p, s, t, z, na, nb, backend, fused
     brb, bcb = k // s, mb // t  # F_B coefficient block
     k1, k2 = split(key, 2)
     dev = a.device
+
+    if not fused_masks:
+        one = dp.va_blocks is not None and skinny_fuses(backend, dev, int(dp.va.shape[0]), t * s, z)
+        REGISTRY.counter("protocol.share." + ("fused" if one else "unfused")).inc()
+        if one:
+            ra = random_field_device(_generator(k1, dev), (batch, z, bra, bca), p, dev)
+            rb = random_field_device(_generator(k2, dev), (batch, z, brb, bcb), p, dev)
+            at = a.transpose(-1, -2).contiguous()  # [batch, ma, k]
+            fa = mod_matmul_blocks_plus(
+                dp.va_blocks, at, dp.a_offsets, bca, k, dp.va_secrets,
+                ra.reshape(batch, z, bra * bca), p=p, backend=backend,
+            )
+            fb = mod_matmul_blocks_plus(
+                dp.vb_blocks, b, dp.b_offsets, bcb, mb, dp.vb_secrets,
+                rb.reshape(batch, z, brb * bcb), p=p, backend=backend,
+            )
+            return fa.reshape(batch, -1, bra, bca), fb.reshape(batch, -1, brb, bcb)
 
     at = a.transpose(-1, -2)  # [batch, ma, k]
     a_blocks = (
@@ -533,7 +608,7 @@ def run_batched(
                 r_sum = random_field_device(
                     _generator(k3, device), (batch, z, blk_flat), p, device
                 )
-                one = rows_plus_fuses(backend, device, plan.n_total, int(ids2.shape[0]), z)
+                one = skinny_fuses(backend, device, plan.n_total, int(ids2.shape[0]), z)
                 REGISTRY.counter("protocol.reduce." + ("fused" if one else "unfused")).inc()
                 i_evals = mod_matmul_rows_plus(  # [b, n_total, .]
                     mix_t, h.reshape(batch, plan.n_total, blk_flat), ids2, dp.vnoise, r_sum,

@@ -25,8 +25,11 @@ struct Params {
   uint32_t f_mid;    // 2**8 mod p
   uint32_t k0, k1;   // threefry key words (MASKED only)
   float pf, inv_p;   // p and 1/p rounded to float
-  // the skinny form with loaded rows only (skinny.cuh, Extra::loaded)
-  const long long* rows;  // [K] row of b (batch stride b_bs) that is term k
+  // the skinny form with loaded terms only (skinny.cuh, Extra::loaded):
+  // output column n of term k < K is b[offs[k] + (n / bc) * ld + n % bc]
+  // (batch stride b_bs); the rows form is bc = ld = N with offs[k] a row
+  const long long* offs;  // [K] where term k starts: a row of b, or an element offset
+  long long bc, ld;       // a block's width and its row stride in elements
   const int* r;           // [z, N] per batch element: terms K .. K + z - 1
   long long r_bs;         // r's batch stride in elements; 0 = shared 2D
 };

@@ -3,6 +3,7 @@
 //   out[b] = a[b] @ b_[b] (mod p)          [B, M, K] @ [B, K, N] -> [B, M, N]
 //   out[b] += v @ R(key)  (mod p)          MASKED: blinding fused in
 //   out[b] = a[b] @ h[b][rows] + v @ r[b]  skinny only: rows picked, z rows loaded
+//   out[b] = a[b] @ blocks(x[b]) + v @ r[b] skinny only: blocks read in place, z rows loaded
 //
 // All operands are int32 in [0, p); either side may be a single 2D
 // matrix shared by every batch element (batch stride 0, never copied).
@@ -107,13 +108,43 @@ extern "C" int modmatmul_rows_plus_launch(int design, const void* a, const void*
                                           unsigned p, void* stream) {
   using namespace gfmm;
   Params P = make_params(a, h, out, M, N, K, a_bs, h_bs, p, v, z);
-  P.rows = static_cast<const long long*>(rows);
+  P.offs = static_cast<const long long*>(rows);
+  P.bc = P.ld = N;  // term k is the whole row rows[k]
   P.r = static_cast<const int*>(r);
   P.r_bs = r_bs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (design) {
     case 2: return (int)launch_skinny_by_m<SkinnyInt32, Extra::loaded>(P, batch, s);
     case 4: return (int)launch_skinny_by_m<SkinnyF32, Extra::loaded>(P, batch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launch out[b] = a[b] @ blocks(x[b]) + v @ r[b] (mod p) on `stream`: the
+// skinny designs' blocks form, design 2 (int32) or 4 (f32).  Term k < K
+// is block k of x: output column n reads x[offs[k] + (n / bc) * ld + n %
+// bc], x's batch elements x_bs apart; offs [K] (int64, device memory)
+// are element offsets; v [M, z]; r's z rows are N apart and its batch
+// elements r_bs apart.  N is a whole number of block rows of bc
+// columns.  The caller (kernel.py) has checked what it checks for
+// modmatmul_launch; the offsets are read unchecked, so keeping every
+// block inside x is its caller's part.
+extern "C" int modmatmul_blocks_plus_launch(int design, const void* a, const void* x,
+                                            const void* offs, const void* v, const void* r,
+                                            void* out, int batch, int M, int N, int K, int z,
+                                            long long a_bs, long long x_bs, long long r_bs,
+                                            long long bc, long long ld, unsigned p, void* stream) {
+  using namespace gfmm;
+  Params P = make_params(a, x, out, M, N, K, a_bs, x_bs, p, v, z);
+  P.offs = static_cast<const long long*>(offs);
+  P.bc = bc;
+  P.ld = ld;
+  P.r = static_cast<const int*>(r);
+  P.r_bs = r_bs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (design) {
+    case 2: return (int)launch_skinny_by_m<SkinnyInt32, Extra::loaded, true>(P, batch, s);
+    case 4: return (int)launch_skinny_by_m<SkinnyF32, Extra::loaded, true>(P, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,16 +5,30 @@
 //   out[b] = a[b] @ b_[b] (+ v @ R(key))  (mod p)
 //   a [M, K], M <= 32, K <= 32;  b_ [K, N], N up to millions
 //
-// modmatmul_int32_skinny_rows_plus<MAXM> and modmatmul_f32_skinny_rows_plus
-// <MAXM>: the same body with z rows loaded from memory in place of the
-// mask words, and B's K rows picked from a taller operand by index:
+// The loaded-terms forms: the same body with z rows loaded from memory
+// in place of the mask words, and B's K terms read in place from a
+// larger operand x.  Term k < K is block k of x: output column n of it
+// is the element
 //
-//   out[b] = a[b] @ h[b][rows] + v @ r[b]  (mod p)
-//   rows [K] row indices into h (on the device);  r [z, N]
+//   x[b][off[k] + (n / bc) * ld + n % bc]
 //
-// The Phase-2 degree reduction, I = mix.T @ H[ids2] + Vnoise @ R_sum, in
-// one pass: H's selected rows are read in place (no gather copy), and
-// the two terms meet in the accumulators (no second output to add).
+// with off [K] per-term element offsets (int64, on the device), bc the
+// block's width and ld x's row stride; term K + i is row i of r [z, N].
+//
+//   modmatmul_{int32,f32}_skinny_blocks_plus<MAXM>:
+//     out[b] = a[b] @ blocks_off(x[b]) + v @ r[b]  (mod p)
+//   The Phase-1 share, F = V[:, pos] @ blocks + V[:, spos] @ R, in one
+//   pass: the t*s data blocks of A^T or B are read where they lie (no
+//   permute copy, no zero-filled coefficient stack, no scatter), the z
+//   secrets as loaded rows.
+//
+//   modmatmul_{int32,f32}_skinny_rows_plus<MAXM>:
+//     out[b] = a[b] @ h[b][rows] + v @ r[b]  (mod p)
+//   The special case bc = ld = N, off[k] = rows[k] * N: whole rows picked
+//   from a taller h by index.  The Phase-2 degree reduction, I = mix.T @
+//   H[ids2] + Vnoise @ R_sum, in one pass: H's selected rows are read in
+//   place (no gather copy), and the two terms meet in the accumulators
+//   (no second output to add).
 //
 // Replace, for these shapes, the Pallas tile bodies of the JAX package
 // (src/repro/kernels/modmatmul/kernel.py):
@@ -56,10 +70,18 @@
 // COLS x z chains of one thread are independent, and at two or more
 // resident blocks per SM other warps hide their latency.
 //
-// Loaded rows (Extra::loaded).  The K + z terms are all read from memory
-// by the same chunked loop: term k < K is row rows[k] of h (the indices
-// sit in shared memory beside the coefficients), term K + i is row i of
-// r.  The coefficient block is [a | v], as in the masked form.
+// Loaded terms (Extra::loaded).  The K + z terms are all read from
+// memory by the same chunked loop: term k < K from x at its element
+// offset (row indices times N in the rows form; the offsets sit in
+// shared memory beside the coefficients), term K + i from row i of r.
+// The coefficient block is [a | v], as in the masked form.  The blocks
+// form (BLOCKS) divides a thread's first column by bc once, for its
+// offset (col0 / bc) * ld + col0 % bc inside a block; the rows form
+// knows bc = ld = N at compile time and adds nothing to the rows' reads.  A
+// column group is one vector load where bc, ld and every offset keep it
+// COLS-aligned (the launcher checks bc and ld, the block's barrier ANDs
+// the offsets' check), else COLS scalar loads, each column placed in its
+// block row on its own.
 //
 // The arithmetic is the policy parameter (SkinnyInt32, SkinnyF32):
 //
@@ -86,6 +108,8 @@
 //
 // Both caps are K + z <= SKINNY_MAX_TERMS = 128, loaded rows or mask words.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -194,10 +218,12 @@ __device__ __forceinline__ void store_cols(int* p, const uint32_t (&x)[COLS]) {
   __stcs(reinterpret_cast<typename IntVec<COLS>::T*>(p), w);
 }
 
-// vec: N % COLS == 0 and b, out (and r, for loaded rows) aligned to COLS
-// ints with batch strides that keep them so (the launcher checks), so
-// whole column groups move as one vector access.
-template <class Arith, int MAXM, Extra E>
+// vec: N % COLS == 0 and b, out (and r, bc and ld, for loaded terms)
+// aligned to COLS ints with batch strides that keep them so (the
+// launcher checks), so whole column groups move as one vector access.
+// BLOCKS (loaded terms only): the blocks form; otherwise whole rows, bc =
+// ld = N known to the compiler.
+template <class Arith, int MAXM, Extra E, bool BLOCKS = false>
 __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
   static_assert(MAXM % 4 == 0, "rows are read four at a time");
   using Coef = typename Arith::Coef;
@@ -217,14 +243,31 @@ __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
       c = t < K ? (uint32_t)a[(size_t)m * K + t] : (uint32_t)P.v[(size_t)m * P.z + (t - K)];
     coef[i] = Arith::coef(c, P);
   }
-  int* rowid = reinterpret_cast<int*>(coef + T * MAXM);  // [K], loaded rows only
-  if constexpr (E == Extra::loaded)
-    for (int k = threadIdx.x; k < K; k += SKINNY_THREADS) rowid[k] = (int)P.rows[k];
-  __syncthreads();
+  long long* offs = reinterpret_cast<long long*>(coef + T * MAXM);  // [K], loaded terms only
+  bool offs_vec = true;  // every term's offset keeps a column group aligned
+  if constexpr (E == Extra::loaded) {
+    bool aligned = true;
+    for (int k = threadIdx.x; k < K; k += SKINNY_THREADS) {
+      offs[k] = BLOCKS ? P.offs[k] : P.offs[k] * N;
+      aligned = aligned && (offs[k] & (COLS - 1)) == 0;
+    }
+    offs_vec = __syncthreads_and(aligned);
+  } else {
+    __syncthreads();
+  }
 
   const long long col0 = ((long long)blockIdx.x * SKINNY_THREADS + threadIdx.x) * COLS;
   if (col0 >= N) return;
   const bool full = vec && col0 + COLS <= N;
+  // a loaded term's first owned column lies (col0 / bc) * ld + col0 % bc
+  // into its block: col0 itself in the rows form (bc = N)
+  long long coloff = col0;
+  if constexpr (E == Extra::loaded && BLOCKS) {
+    if (P.bc != N) {
+      const unsigned q = (unsigned)col0 / (unsigned)P.bc;
+      coloff = (long long)q * P.ld + ((unsigned)col0 - q * (unsigned)P.bc);
+    }
+  }
   typename Arith::Acc acc[MAXM][COLS];
 #pragma unroll
   for (int m = 0; m < MAXM; ++m)
@@ -248,32 +291,54 @@ __device__ __forceinline__ void skinny_body(const Params& P, const bool vec) {
     }
   };
 
-  const int* __restrict__ b = P.b + (size_t)bb * (size_t)P.b_bs + col0;
+  // every memory row starts at the thread's first column: a loaded term
+  // k < K at b + offs[k], b already moved by coloff
+  const int* __restrict__ b = P.b + (size_t)bb * (size_t)P.b_bs + (E == Extra::loaded ? coloff : col0);
   const int* __restrict__ rz = E == Extra::loaded ? P.r + (size_t)bb * (size_t)P.r_bs + col0 : nullptr;
   auto row_of = [&](int t) -> const int* {  // the memory row of term t < KB
     if constexpr (E == Extra::loaded)
-      return t < K ? b + (size_t)rowid[t] * N : rz + (size_t)(t - K) * N;
+      return t < K ? b + offs[t] : rz + (size_t)(t - K) * N;
     else
       return b + (size_t)t * N;
   };
-  for (int k0 = 0; k0 < KB; k0 += KCHUNK) {
-    uint32_t x[KCHUNK][COLS];
-#pragma unroll
-    for (int kk = 0; kk < KCHUNK; ++kk) {
-      if (k0 + kk < KB) {
-        const int* row = row_of(k0 + kk);
-        if (full) {
-          load_cols<COLS>(row, x[kk]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < COLS; ++j) x[kk][j] = col0 + j < N ? (uint32_t)row[j] : 0u;
-        }
+  // owned column j of term t one at a time: a loaded term's column may
+  // lie in the block's next row
+  auto element = [&](int t, const int* row, int j) -> uint32_t {
+    if (col0 + j >= N) return 0u;
+    if constexpr (E == Extra::loaded && BLOCKS) {
+      if (t < K && P.bc != N) {
+        const unsigned n = (unsigned)(col0 + j), q = n / (unsigned)P.bc;
+        return (uint32_t)row[(long long)q * P.ld + (n - q * (unsigned)P.bc) - coloff];
       }
     }
+    return (uint32_t)row[j];
+  };
+  // fast: every term's column group is one vector load (decided once, so
+  // the chunk's loads go out back to back without a branch)
+  auto terms = [&](auto fast) {
+    for (int k0 = 0; k0 < KB; k0 += KCHUNK) {
+      uint32_t x[KCHUNK][COLS];
 #pragma unroll
-    for (int kk = 0; kk < KCHUNK; ++kk)
-      if (k0 + kk < KB) accumulate(k0 + kk, x[kk]);
-  }
+      for (int kk = 0; kk < KCHUNK; ++kk) {
+        if (k0 + kk < KB) {
+          const int* row = row_of(k0 + kk);
+          if (decltype(fast)::value || (full && (E != Extra::loaded || k0 + kk >= K))) {
+            load_cols<COLS>(row, x[kk]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < COLS; ++j) x[kk][j] = element(k0 + kk, row, j);
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KCHUNK; ++kk)
+        if (k0 + kk < KB) accumulate(k0 + kk, x[kk]);
+    }
+  };
+  if (E == Extra::loaded && full && offs_vec)
+    terms(std::true_type{});
+  else
+    terms(std::false_type{});  // the other forms decide a term's vector load term by term
   if constexpr (E == Extra::mask) {
     for (int zi = 0; zi < P.z; ++zi) {
       uint32_t x[COLS];
@@ -330,22 +395,41 @@ __global__ void __launch_bounds__(SKINNY_THREADS)
   skinny_body<SkinnyF32, MAXM, Extra::loaded>(P, vec);
 }
 
-template <int MAXM, Extra E>
+// The blocks form: the loaded-terms body with BLOCKS, under a name of its
+// own, so the profiler tells the share's launches from the reduce's.
+template <int MAXM>
+__global__ void __launch_bounds__(SKINNY_THREADS)
+    modmatmul_int32_skinny_blocks_plus(const Params P, const bool vec) {
+  skinny_body<SkinnyInt32, MAXM, Extra::loaded, true>(P, vec);
+}
+
+// At MAXM = 20 the f32 blocks form would take 130 registers, two past the
+// 128 that let two blocks share an SM (the other f32 forms take 128);
+// asking for two keeps it at the stack form's speed (1.15 against 1.72 ms
+// for share B at the main width on an H100).
+template <int MAXM>
+__global__ void __launch_bounds__(SKINNY_THREADS, MAXM == 20 ? 2 : 1)
+    modmatmul_f32_skinny_blocks_plus(const Params P, const bool vec) {
+  skinny_body<SkinnyF32, MAXM, Extra::loaded, true>(P, vec);
+}
+
+template <int MAXM, Extra E, bool BLOCKS>
 auto skinny_kernel(SkinnyInt32) {
   if constexpr (E == Extra::loaded)
-    return modmatmul_int32_skinny_rows_plus<MAXM>;
+    return BLOCKS ? modmatmul_int32_skinny_blocks_plus<MAXM> : modmatmul_int32_skinny_rows_plus<MAXM>;
   else
     return modmatmul_int32_skinny<MAXM, E == Extra::mask>;
 }
-template <int MAXM, Extra E>
+template <int MAXM, Extra E, bool BLOCKS>
 auto skinny_kernel(SkinnyF32) {
   if constexpr (E == Extra::loaded)
-    return modmatmul_f32_skinny_rows_plus<MAXM>;
+    return BLOCKS ? modmatmul_f32_skinny_blocks_plus<MAXM> : modmatmul_f32_skinny_rows_plus<MAXM>;
   else
     return modmatmul_f32_skinny<MAXM, E == Extra::mask>;
 }
 
-template <class Arith, int MAXM, Extra E>
+// BLOCKS (loaded terms only): the blocks form's kernel, else the rows form's.
+template <class Arith, int MAXM, Extra E, bool BLOCKS>
 cudaError_t launch_skinny(const Params& P, int batch, cudaStream_t stream) {
   constexpr int COLS = SkinnyCols<MAXM>::value;
   const long long span = (long long)SKINNY_THREADS * COLS;
@@ -353,15 +437,15 @@ cudaError_t launch_skinny(const Params& P, int batch, cudaStream_t stream) {
   long long strides = P.b_bs;
   if (E == Extra::loaded) {
     addrs |= reinterpret_cast<uintptr_t>(P.r);
-    strides |= P.r_bs;
+    strides |= P.r_bs | P.bc | P.ld;
   }
   const bool vec = P.N % COLS == 0 && strides % COLS == 0 && addrs % (sizeof(int) * COLS) == 0;
   const int terms = P.K + (E == Extra::none ? 0 : P.z);
   // int32: <= 16 KB; f32: <= 64 KB, above the default 48 KB window;
-  // loaded rows add their K indices
+  // loaded terms add their K offsets
   const size_t smem = sizeof(typename Arith::Coef) * (size_t)terms * MAXM +
-                      (E == Extra::loaded ? sizeof(int) * (size_t)P.K : 0);
-  auto kernel = skinny_kernel<MAXM, E>(Arith{});
+                      (E == Extra::loaded ? sizeof(long long) * (size_t)P.K : 0);
+  auto kernel = skinny_kernel<MAXM, E, BLOCKS>(Arith{});
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -372,19 +456,21 @@ cudaError_t launch_skinny(const Params& P, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <class Arith, Extra E>
+template <class Arith, Extra E, bool BLOCKS = false>
 cudaError_t launch_skinny_by_m(const Params& P, int batch, cudaStream_t stream) {
   if (P.M > SKINNY_MAX_M || P.K > SKINNY_MAX_K || P.K + P.z > SKINNY_MAX_TERMS)
     return cudaErrorInvalidValue;
+  if (E == Extra::loaded && (P.bc < 1 || P.bc > P.N || P.ld < 1))
+    return cudaErrorInvalidValue;
   switch ((P.M + 3) / 4) {  // M rounded up to a multiple of 4
-    case 1: return launch_skinny<Arith, 4, E>(P, batch, stream);
-    case 2: return launch_skinny<Arith, 8, E>(P, batch, stream);
-    case 3: return launch_skinny<Arith, 12, E>(P, batch, stream);
-    case 4: return launch_skinny<Arith, 16, E>(P, batch, stream);
-    case 5: return launch_skinny<Arith, 20, E>(P, batch, stream);
-    case 6: return launch_skinny<Arith, 24, E>(P, batch, stream);
-    case 7: return launch_skinny<Arith, 28, E>(P, batch, stream);
-    case 8: return launch_skinny<Arith, 32, E>(P, batch, stream);
+    case 1: return launch_skinny<Arith, 4, E, BLOCKS>(P, batch, stream);
+    case 2: return launch_skinny<Arith, 8, E, BLOCKS>(P, batch, stream);
+    case 3: return launch_skinny<Arith, 12, E, BLOCKS>(P, batch, stream);
+    case 4: return launch_skinny<Arith, 16, E, BLOCKS>(P, batch, stream);
+    case 5: return launch_skinny<Arith, 20, E, BLOCKS>(P, batch, stream);
+    case 6: return launch_skinny<Arith, 24, E, BLOCKS>(P, batch, stream);
+    case 7: return launch_skinny<Arith, 28, E, BLOCKS>(P, batch, stream);
+    case 8: return launch_skinny<Arith, 32, E, BLOCKS>(P, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,7 +17,12 @@ the same operand arrays):
   degree reduction's form, the skinny kernel's loaded-rows launch on the
   card: ``cuda_rows_plus``, ``cuda_int32_rows_plus``; its plain route
   on the CPU: ``int32_rows_plus``), on operands rearranged so that the
-  form's result is a @ b (``rows_plus_operands``),
+  form's result is a @ b (``rows_plus_operands``), and through
+  ``mod_matmul_blocks_plus`` (the Phase-1 share's form, B's rows laid
+  out as blocks of a larger x: ``cuda_blocks_plus``,
+  ``cuda_int32_blocks_plus`` where ``skinny_fuses`` holds, the plain
+  version elsewhere and in ``int32_blocks_plus``;
+  ``blocks_plus_operands``),
 * layouts — both operands batched, either side 2D (read with batch
   stride 0 by the kernels), both 2D,
 * primes — small, mid, and the adjacent 16-bit maximals 65519/65521,
@@ -44,7 +49,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .ops import mod_matmul, mod_matmul_crt, mod_matmul_rows_plus
+from .ops import (
+    mod_matmul,
+    mod_matmul_blocks_plus,
+    mod_matmul_crt,
+    mod_matmul_rows_plus,
+    skinny_fuses,
+)
+from .ref import modmatmul_blocks_plus_plain
 
 PRIMES = (3, 251, 257, 4093, 40961, 65519, 65521)
 CRT_PRIMES = (65521, 65519)
@@ -90,21 +102,51 @@ def rows_plus_operands(a: np.ndarray, b: np.ndarray, p: int) -> tuple:
     seeded by the shapes and p, so a case always rearranges the same
     way."""
     rng = np.random.default_rng([p, *a.shape, *b.shape])
-    k = a.shape[-1]
-    moved = min(4, k - 1) if a.ndim == 2 else 0
-    kk = k - moved
-    if moved:
-        a1, v, r = a[:, :kk], a[:, kk:], b[..., kk:, :]
-    else:
-        a1 = a
-        c = rng.integers(1, p, (a.shape[-2], 1), dtype=np.int64)
-        v = np.concatenate([c, p - c], axis=1)
-        row = rng.integers(0, p, b.shape[:-2] + (1, b.shape[-1]), dtype=np.int64)
-        r = np.concatenate([row, row], axis=-2)
+    a1, v, r = _loaded_terms(a, b, p, rng)
+    kk = a1.shape[-1]
     perm = rng.permutation(kk + 3)
     h = rng.integers(0, p, b.shape[:-2] + (kk + 3, b.shape[-1]), dtype=np.int64)
     h[..., perm[:kk], :] = b[..., :kk, :]
     return a1, h, perm[:kk], v, r
+
+
+def _loaded_terms(a: np.ndarray, b: np.ndarray, p: int, rng: np.random.Generator) -> tuple:
+    """(a', v, r) of a contraction split into the kernel's K' data terms
+    and its z loaded rows: where a is 2D and K >= 2, the last min(4, K -
+    1) terms move to v @ r; otherwise v @ r is a pair that cancels."""
+    k = a.shape[-1]
+    moved = min(4, k - 1) if a.ndim == 2 else 0
+    if moved:
+        kk = k - moved
+        return a[:, :kk], a[:, kk:], b[..., kk:, :]
+    c = rng.integers(1, p, (a.shape[-2], 1), dtype=np.int64)
+    row = rng.integers(0, p, b.shape[:-2] + (1, b.shape[-1]), dtype=np.int64)
+    return a, np.concatenate([c, p - c], axis=1), np.concatenate([row, row], axis=-2)
+
+
+def blocks_plus_operands(a: np.ndarray, b: np.ndarray, p: int) -> tuple:
+    """(a', x, offsets, bc, ld, v, r) with a' @ blocks(x) + v @ r == a @ b
+    (mod p), ``blocks`` as ``mod_matmul_blocks_plus`` reads them.
+
+    Each of b's first K' rows becomes an [N / bc, bc] block (bc a divisor
+    of N), its rows ld >= bc apart, in a slot of x among one slot of
+    junk, the slots in a shuffled order and each block shifted inside
+    its slot.  v and r as in ``rows_plus_operands``; drawn from a
+    generator seeded by the shapes and p."""
+    rng = np.random.default_rng([p, 7, *a.shape, *b.shape])
+    a1, v, r = _loaded_terms(a, b, p, rng)
+    kk, n = a1.shape[-1], b.shape[-1]
+    bc = int(rng.choice([d for d in range(1, n + 1) if n % d == 0]))
+    nr, ld = n // bc, bc + int(rng.integers(0, 4))
+    slot = nr * ld + int(rng.integers(0, 3))
+    perm = rng.permutation(kk + 1)
+    shift = rng.integers(0, slot - (nr - 1) * ld - bc + 1, kk)
+    offsets = perm[:kk] * slot + shift
+    x = rng.integers(0, p, b.shape[:-2] + ((kk + 1) * slot,), dtype=np.int64)
+    cols = np.arange(n)
+    idx = offsets[:, None] + (cols // bc) * ld + cols % bc
+    x[..., idx] = b[..., :kk, :]
+    return a1, x.reshape(b.shape[:-2] + (kk + 1, slot)), offsets, bc, ld, v, r
 
 
 def _engine_rows_plus(backend: str, kernel: bool) -> Callable:
@@ -113,6 +155,21 @@ def _engine_rows_plus(backend: str, kernel: bool) -> Callable:
         a1, h, rows, v, r = (torch.as_tensor(x, dtype=torch.int32, device=device)
                              for x in rows_plus_operands(a, b, p))
         out = mod_matmul_rows_plus(a1, h, rows.to(torch.int64), v, r, p=p, backend=backend)
+        return out.cpu().numpy().astype(np.int64)
+
+    return run
+
+
+def _engine_blocks_plus(backend: str, kernel: bool) -> Callable:
+    def run(a, b, p, device=None):
+        device = _engine_device(backend, kernel, device)
+        a1, x, offsets, bc, ld, v, r = blocks_plus_operands(a, b, p)
+        a1, x, v, r = (torch.as_tensor(t, dtype=torch.int32, device=device) for t in (a1, x, v, r))
+        offsets = torch.as_tensor(offsets, dtype=torch.int64, device=device)
+        if kernel and skinny_fuses(backend, device, *a1.shape[-2:], v.shape[-1]):
+            out = mod_matmul_blocks_plus(a1, x, offsets, bc, ld, v, r, p=p, backend=backend)
+        else:  # the form launches only inside the rule
+            out = modmatmul_blocks_plus_plain(a1, x, offsets, bc, ld, v, r, p)
         return out.cpu().numpy().astype(np.int64)
 
     return run
@@ -132,6 +189,9 @@ ENGINES: Dict[str, Callable] = {
     "int32_rows_plus": _engine_rows_plus("int32", kernel=False),
     "cuda_rows_plus": _engine_rows_plus("cuda", kernel=True),
     "cuda_int32_rows_plus": _engine_rows_plus("cuda_int32", kernel=True),
+    "int32_blocks_plus": _engine_blocks_plus("int32", kernel=False),
+    "cuda_blocks_plus": _engine_blocks_plus("cuda", kernel=True),
+    "cuda_int32_blocks_plus": _engine_blocks_plus("cuda_int32", kernel=True),
 }
 
 

@@ -20,7 +20,9 @@ each with a fused-mask form, replace the three Pallas tile bodies of
   policy parameter.  Its loaded-rows form computes ``a @ h[rows] + v @
   r`` in one pass: B's K rows picked from a taller ``h`` by an index
   list, and z more rows loaded from ``r`` (the Phase-2 degree
-  reduction).
+  reduction); its blocks form, ``a @ blocks(x) + v @ r``, reads B's K
+  terms as blocks of a larger ``x`` in place, by element offset, block
+  width and row stride (the Phase-1 share).
 
 :func:`choose_design` is the shape rule.
 
@@ -30,8 +32,8 @@ library with a plain C interface under ``build/repro_torch_kernels/`` (or
 flags so an edit rebuilds; ``ctypes`` loads it.  Nothing is built or
 imported when this module is imported.
 
-Wrappers: :func:`modmatmul_cuda`, :func:`modmatmul_masked_cuda` and
-:func:`modmatmul_rows_plus_cuda`.  On
+Wrappers: :func:`modmatmul_cuda`, :func:`modmatmul_masked_cuda`,
+:func:`modmatmul_rows_plus_cuda` and :func:`modmatmul_blocks_plus_cuda`.  On
 CUDA tensors they check device, dtype, contiguity and shape, allocate
 the output (and the scratch a design asks for), launch on the current
 stream, raise if the launch failed, and add one to the launch counts.  On CPU tensors they run the kernel's
@@ -80,8 +82,8 @@ _MAX_GRID_YZ = 65535
 # Launch counts.  LAUNCHES is keyed by the TPU kernel each launch stands
 # for; LAUNCHES_BY_KERNEL by the compiled kernel that ran.  Each has a
 # Counter of (B, M, K, N) per name beside it.  Each wrapper adds one
-# where it launches a kernel and nowhere else.  A loaded-rows launch
-# counts as its design's plain form with K + z rows of B.
+# where it launches a kernel and nowhere else.  A loaded-rows or blocks
+# launch counts as its design's plain form with K + z rows of B.
 KERNEL_NAMES = ("modmatmul_int32", "modmatmul_int32_masked", "modmatmul_f32", "modmatmul_f32_masked")
 COMPILED_NAMES = (
     "int32_mma", "int32_mma_masked", "int32_skinny", "int32_skinny_masked",
@@ -210,6 +212,18 @@ def bind(so: Path):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # v, r, out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch, M, N, K, z
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch strides of a, h, r
+        ctypes.c_uint,  # p
+        ctypes.c_void_p,  # stream
+    ]
+    fn = lib.modmatmul_blocks_plus_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int,  # design
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a, x, offsets
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # v, r, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch, M, N, K, z
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch strides of a, x, r
+        ctypes.c_longlong, ctypes.c_longlong,  # bc, ld
         ctypes.c_uint,  # p
         ctypes.c_void_p,  # stream
     ]
@@ -465,19 +479,33 @@ def modmatmul_rows_plus_cuda(
 
 
 def _launch_rows_plus(variant, a, h, rows, v, r, p) -> torch.Tensor:
+    return _launch_loaded(
+        variant, "loaded rows", ("h", h), ("rows", rows), a, v, r, p,
+        _rows_plus_geometry(a, h, rows, v, r),
+        lambda lib, compiled, out: launch_rows_plus_into(lib, compiled, a, h, rows, v, r, out, p))
+
+
+def _launch_loaded(variant, form, source, index, a, v, r, p, geometry, launch) -> torch.Tensor:
+    """The checks, output and count that the loaded-terms forms share.
+
+    ``source`` and ``index`` are (name, tensor) of the operand the K terms
+    are read from and of its int64 row indices or offsets; ``geometry``
+    is the form's (batch, M, K, z, N); ``launch(lib, compiled, out)``
+    launches the form into ``out`` and returns the CUDA error."""
     if not 2 < p < 1 << 16:
         raise ValueError("kernel requires 2 < p < 2**16")
     name = _kernel_name(variant, False)
     compiled = f"{variant}_skinny"
-    batch, m, k, z, n = _rows_plus_geometry(a, h, rows, v, r)
-    _check_device(compiled, a, h, rows, v, r)
-    for t in (a, h, rows, v, r):
-        if t.dtype != (torch.int64 if t is rows else torch.int32):
-            raise ValueError(f"{compiled}: rows must be int64 and the other operands int32")
-    for t in (a, rows, v):
+    (xname, x), (iname, idx) = source, index
+    batch, m, k, z, n = geometry
+    _check_device(compiled, a, x, idx, v, r)
+    for t in (a, x, idx, v, r):
+        if t.dtype != (torch.int64 if t is idx else torch.int32):
+            raise ValueError(f"{compiled}: {iname} must be int64 and the other operands int32")
+    for t in (a, idx, v):
         if not t.is_contiguous():
-            raise ValueError(f"{compiled}: a, rows and v must be contiguous")
-    _batch_stride("h", h)
+            raise ValueError(f"{compiled}: a, {iname} and v must be contiguous")
+    _batch_stride(xname, x)
     _batch_stride("r", r)
     if max(m, n, k) >= 1 << 31:
         raise ValueError(f"{compiled}: dims must be below 2**31")
@@ -485,12 +513,108 @@ def _launch_rows_plus(variant, a, h, rows, v, r, p) -> torch.Tensor:
         raise ValueError(f"{compiled}: M {m}, K {k}, z {z} are outside the skinny designs")
     if not _grid_ok("skinny", batch, m, n):
         raise ValueError(f"{compiled}: batch {batch} / M {m} / N {n} exceed the launch grid")
-    batched = any(t.dim() == 3 for t in (a, h, r))
+    batched = any(t.dim() == 3 for t in (a, x, r))
     out = torch.empty((batch, m, n) if batched else (m, n), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
-    err = launch_rows_plus_into(load_library(), compiled, a, h, rows, v, r, out, p)
+    err = launch(load_library(), compiled, out)
     if err != 0:
-        raise RuntimeError(f"{compiled} (loaded rows): kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{compiled} ({form}): kernel launch failed with CUDA error {err}")
     _count(name, compiled, (batch, m, k + z, n))
     return out
+
+
+def _blocks_plus_geometry(a, x, offsets, bc, ld, v, r) -> Tuple[int, int, int, int, int]:
+    """(batch, M, K, z, N) of ``a @ blocks(x) + v @ r``; raises on bad shapes.
+
+    a [M, K] or [B, M, K]; x [R, C] or [B, R, C]; offsets [K]; v [M, z];
+    r [z, N] or [B, z, N], N a whole number of block rows of ``bc``
+    columns (N / bc rows ``ld`` apart) that fit in x's batch element.
+    The 3D operands share one B.  The offsets stay on their device,
+    unchecked."""
+    if a.dim() not in (2, 3) or x.dim() not in (2, 3) or r.dim() not in (2, 3):
+        raise ValueError(f"a, x and r must be 2D or 3D, got {tuple(a.shape)} "
+                         f"{tuple(x.shape)} {tuple(r.shape)}")
+    m, k = (int(d) for d in a.shape[-2:])
+    if offsets.dim() != 1 or offsets.shape[0] != k:
+        raise ValueError(f"offsets must be [K={k}], got {tuple(offsets.shape)}")
+    if v.dim() != 2 or v.shape[0] != m:
+        raise ValueError(f"v must be [M={m}, z], got {tuple(v.shape)}")
+    z, n = int(v.shape[1]), int(r.shape[-1])
+    if int(r.shape[-2]) != z:
+        raise ValueError(f"r must be [..., z={z}, N], got {tuple(r.shape)}")
+    if not (0 < bc <= n and n % bc == 0 and ld >= bc):
+        raise ValueError(f"blocks of width {bc}, rows {ld} apart, cannot make N = {n} columns")
+    extent = int(x.shape[-2]) * int(x.shape[-1])
+    if (n // bc - 1) * ld + bc > extent:
+        raise ValueError(f"a block of {n // bc} rows of {bc}, {ld} apart, reads outside x's "
+                         f"{extent} elements a batch element")
+    batches = {int(t.shape[0]) for t in (a, x, r) if t.dim() == 3}
+    if len(batches) > 1:
+        raise ValueError(f"batch dims disagree: {tuple(a.shape)} {tuple(x.shape)} {tuple(r.shape)}")
+    return (batches.pop() if batches else 1), m, k, z, n
+
+
+def launch_blocks_plus_into(lib, design: str, a, x, offsets, bc, ld, v, r, out, p: int) -> int:
+    """One launch of ``lib``'s blocks form of the skinny ``design``
+    (``"int32_skinny"`` or ``"f32_skinny"``) writing ``out``, on the
+    current stream, with no checks and no counting; returns the CUDA
+    error."""
+    batch, m, k, z, n = _blocks_plus_geometry(a, x, offsets, bc, ld, v, r)
+    with torch.cuda.device(a.device):
+        return lib.modmatmul_blocks_plus_launch(
+            DESIGNS[design],
+            a.data_ptr(), x.data_ptr(), offsets.data_ptr(), v.data_ptr(), r.data_ptr(),
+            out.data_ptr(),
+            batch, m, n, k, z,
+            m * k if a.dim() == 3 else 0, _batch_stride("x", x), _batch_stride("r", r),
+            bc, ld, p,
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+
+
+def modmatmul_blocks_plus_cuda(
+    a: torch.Tensor,
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    bc: int,
+    ld: int,
+    v: torch.Tensor,
+    r: torch.Tensor,
+    p: int = P_DEFAULT,
+    variant: str = "int32",
+) -> torch.Tensor:
+    """``a @ blocks(x) + v @ r  (mod p)`` in one launch of the skinny
+    design's blocks form.
+
+    Block k of x, the term of a's column k, is the [N / bc, bc] block
+    whose column n is x's element ``offsets[k] + (n // bc) * ld + n %
+    bc`` of its batch element, counted in the batch element's
+    row-major order.  a [M, K] or [B, M, K]; x [R, C] or [B, R, C],
+    each batch element's rows contiguous (C apart), batch elements any
+    stride apart (0 where x is a broadcast view; x is never copied);
+    offsets [K] int64 on x's device; v [M, z]; r [z, N] or [B, z, N],
+    rows contiguous.  Takes only what the skinny designs take: M <= 32,
+    K <= 32, K + z <= 128.  The host checks that a block's span fits in
+    x's batch element; the launch reads ``offsets`` on the card
+    unchecked, so each must leave its block inside x
+    (``protocol.device_plan_arrays`` checks the share's where it builds
+    them).  Counted
+    once, under the skinny design, as a product of shape (B, M, K + z,
+    N).  On CPU tensors it runs the plain version (and counts nothing).
+    """
+    tensors = (a, x, offsets, v, r)
+    if all(t.device.type == "cpu" for t in tensors):
+        _blocks_plus_geometry(a, x, offsets, bc, ld, v, r)
+        return ref.modmatmul_blocks_plus_plain(a, x, offsets, bc, ld, v, r, p, variant)
+    return _launch_blocks_plus(variant, a, x, offsets, int(bc), int(ld), v, r, p)
+
+
+def _launch_blocks_plus(variant, a, x, offsets, bc, ld, v, r, p) -> torch.Tensor:
+    if ld >= 1 << 31:
+        raise ValueError(f"{variant}_skinny: the row stride must be below 2**31")
+    return _launch_loaded(
+        variant, "blocks", ("x", x), ("offsets", offsets), a, v, r, p,
+        _blocks_plus_geometry(a, x, offsets, bc, ld, v, r),
+        lambda lib, compiled, out: launch_blocks_plus_into(lib, compiled, a, x, offsets, bc, ld, v, r,
+                                                           out, p))

@@ -33,8 +33,11 @@ device and pins the winner, which ``pick_tiles`` then returns first.
 
 ``mod_matmul_rows_plus`` is the Phase-2 degree reduction's shape,
 ``a @ h[rows] + v @ r``: one launch of the skinny kernel's loaded-rows
-form where ``rows_plus_fuses`` says so, the selection and two products
-otherwise.
+form where ``skinny_fuses`` says so, the selection and two products
+otherwise.  ``mod_matmul_blocks_plus`` is the Phase-1 share's,
+``a @ blocks(x) + v @ r`` with the blocks read from x in place by
+offset, width and row stride: one launch of the blocks form, only where
+``skinny_fuses`` says so.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from ...core.gf import (
 from .kernel import (
     choose_design,
     design_tiles,
+    modmatmul_blocks_plus_cuda,
     modmatmul_cuda,
     modmatmul_masked_cuda,
     modmatmul_rows_plus_cuda,
@@ -319,10 +323,11 @@ def mod_matmul_masked(
     return out.reshape(batch + (m, n))
 
 
-def rows_plus_fuses(backend: str, device, m: int, k: int, z: int) -> bool:
-    """Whether ``mod_matmul_rows_plus`` runs as one launch: on a CUDA
-    device with a kernel backend (``"auto"`` is one there), at a shape
-    the skinny designs take (M <= 32, K <= 32, K + z <= 128)."""
+def skinny_fuses(backend: str, device, m: int, k: int, z: int) -> bool:
+    """Whether a loaded-terms form of the skinny kernel runs as one
+    launch (``mod_matmul_rows_plus``, ``mod_matmul_blocks_plus``): on a
+    CUDA device with a kernel backend (``"auto"`` is one there), at a
+    shape the skinny designs take (M <= 32, K <= 32, K + z <= 128)."""
     device = torch.device(device)
     if device.type != "cuda":
         return False
@@ -358,7 +363,7 @@ def mod_matmul_rows_plus(
     [B, z, N].  Returns int32 [B, M, N] ([M, N] when no operand has a
     batch axis).
 
-    Where ``rows_plus_fuses`` holds, one launch of the skinny kernel's
+    Where ``skinny_fuses`` holds, one launch of the skinny kernel's
     loaded-rows form reads h's selected rows in place and sums both
     products in its accumulators.  Elsewhere (a plain backend, the CPU,
     or M > 32, K > 32, K + z > 128) it computes
@@ -367,7 +372,7 @@ def mod_matmul_rows_plus(
     """
     m, k = a.shape[-2:]
     z = v.shape[-1]
-    if not rows_plus_fuses(backend, h.device, m, k, z):
+    if not skinny_fuses(backend, h.device, m, k, z):
         picked = h.index_select(-2, rows)
         return mod_add(mod_matmul(a, picked, p=p, backend=backend),
                        mod_matmul(v, r, p=p, backend=backend), p)
@@ -376,6 +381,49 @@ def mod_matmul_rows_plus(
     return modmatmul_rows_plus_cuda(
         a.contiguous(), _rows_contiguous(h), rows.contiguous(), v.contiguous(), _rows_contiguous(r),
         p, _CUDA_VARIANTS[backend],
+    )
+
+
+def mod_matmul_blocks_plus(
+    a: torch.Tensor,
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    bc: int,
+    ld: int,
+    v: torch.Tensor,
+    r: torch.Tensor,
+    p: int = P_DEFAULT,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """``a @ blocks(x) + v @ r  (mod p)``, the Phase-1 share's
+    ``V[:, pos] @ blocks + V[:, spos] @ R``.
+
+    Block k, the term of a's column k, is the [N / bc, bc] block of x
+    whose column n is the element ``offsets[k] + (n // bc) * ld + n %
+    bc`` of x's batch element in row-major order (N = r's width).  a
+    [M, K] or [B, M, K]; x [R, C] or [B, R, C] (batch stride free, 0 for
+    a broadcast view); offsets [K] int64 on x's device; v [M, z]; r [z,
+    N] or [B, z, N].  Returns int32 [B, M, N] ([M, N] when no operand
+    has a batch axis).
+
+    One launch of the skinny kernel's blocks form reads the blocks where
+    they lie and sums both products in its accumulators.  It runs only
+    where ``skinny_fuses`` holds and raises ``ValueError`` elsewhere (a
+    plain backend, the CPU, or M > 32, K > 32, K + z > 128), where
+    ``protocol._share`` keeps its coefficient-stack path;
+    ``kernel.modmatmul_blocks_plus_cuda`` on CPU tensors is its plain
+    version.
+    """
+    m, k = a.shape[-2:]
+    z = v.shape[-1]
+    if not skinny_fuses(backend, x.device, m, k, z):
+        raise ValueError(f"the blocks form runs on the card at the skinny designs' shapes, not "
+                         f"backend {backend!r} on {x.device} at M {m}, K {k}, z {z}")
+    if backend == "auto":
+        backend = _resolve_auto(k, x.device)
+    return modmatmul_blocks_plus_cuda(
+        a.contiguous(), _rows_contiguous(x), offsets.contiguous(), bc, ld, v.contiguous(),
+        _rows_contiguous(r), p, _CUDA_VARIANTS[backend],
     )
 
 

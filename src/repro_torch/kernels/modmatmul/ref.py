@@ -73,3 +73,32 @@ def modmatmul_rows_plus_plain(
     both products materialized: ``a @ h[..., rows, :] + v @ r  (mod p)``."""
     picked = PLAIN[variant](a, h.index_select(-2, rows), p)
     return mod_add(picked, PLAIN[variant](v, r, p), p)
+
+
+def gather_blocks(x: torch.Tensor, offsets: torch.Tensor, bc: int, ld: int, n: int) -> torch.Tensor:
+    """The K blocks the blocks form reads, materialized: [..., K, n] with
+    element (k, j) at ``offsets[k] + (j // bc) * ld + j % bc`` of x's
+    batch element in row-major order.  Raises where a block leaves it."""
+    flat = x.reshape(tuple(x.shape[:-2]) + (-1,))
+    cols = torch.arange(n, dtype=torch.int64, device=x.device)
+    idx = offsets.to(torch.int64)[:, None] + (cols // bc) * ld + cols % bc  # [K, n]
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= flat.shape[-1]):
+        raise ValueError(f"a block reads outside x's {flat.shape[-1]} elements a batch element")
+    return flat[..., idx]
+
+
+def modmatmul_blocks_plus_plain(
+    a: torch.Tensor,
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    bc: int,
+    ld: int,
+    v: torch.Tensor,
+    r: torch.Tensor,
+    p: int = P_DEFAULT,
+    variant: str = "int32",
+) -> torch.Tensor:
+    """The blocks skinny kernel's function with the blocks gathered and
+    both products materialized: ``a @ blocks(x) + v @ r  (mod p)``."""
+    blocks = gather_blocks(x, offsets, bc, ld, int(r.shape[-1]))
+    return mod_add(PLAIN[variant](a, blocks, p), PLAIN[variant](v, r, p), p)

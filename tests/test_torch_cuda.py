@@ -27,6 +27,7 @@ from repro_torch.kernels.modmatmul import kernel as K
 from repro_torch.kernels.modmatmul import ops, ref
 from repro_torch.launch import serve as launcher
 from repro_torch.models import build_model
+from repro_torch.obs.metrics import REGISTRY
 
 pytestmark = pytest.mark.cuda
 
@@ -276,8 +277,8 @@ def test_run_batched_reduce_is_bit_identical_to_the_three_step_path(cuda, monkey
         return y, sum(K.LAUNCHES.values())
 
     y_one, n_one = call()
-    for mod in (ops, protocol):  # today's path: the selection, mix, noise and mod_add
-        monkeypatch.setattr(mod, "rows_plus_fuses", lambda *args: False)
+    for mod in (ops, protocol):  # the unfused paths: the share stack, selection, mix, noise, mod_add
+        monkeypatch.setattr(mod, "skinny_fuses", lambda *args: False)
     y_three, n_three = call()
     assert (n_one, n_three) == (5, 6)
     assert torch.equal(seen[0], seen[1]) and torch.equal(y_one, y_three)
@@ -288,6 +289,120 @@ def test_run_batched_reduce_is_bit_identical_to_the_three_step_path(cuda, monkey
 def test_fuzz_rows_plus_engines_clean(cuda):
     K.reset_launch_counts()
     found = fuzz.run_fuzz(examples=32, seed=3, engines=["cuda_rows_plus", "cuda_int32_rows_plus"])
+    assert found == [], "\n".join(m.describe() for m in found)
+    launched = {k for k, v in K.LAUNCHES_BY_KERNEL.items() if v}
+    assert {"int32_skinny", "f32_skinny"} <= launched
+
+
+# ----------------------------------------------------------------------
+# the Phase-1 share's blocks form (one launch per operand)
+# ----------------------------------------------------------------------
+# (batch, m, k, z, bc, block rows, ld, offsets, x shape, shared x).  M <=
+# 16 gives a thread 4 columns, M > 16 two.  bc, ld and every offset
+# multiples of the columns a thread owns take the vector loads; an odd
+# bc or ld, or a single odd offset (the block's AND over its offsets),
+# the scalar ones; N past one block's span and not a multiple of it
+_BLOCKS_CASES = [
+    (2, 16, 4, 1, 1024, 8, 2048, [0, 1024, 16384, 17408], (16, 2048), False),  # vector, 4 columns
+    (3, 17, 4, 2, 514, 6, 1030, [0, 514, 6180, 6694], (12, 1030), False),  # vector, 2 columns
+    (2, 17, 4, 2, 257, 6, 300, [0, 43, 1800, 1843], (12, 300), False),  # odd bc: scalar
+    (2, 16, 4, 2, 64, 40, 128, [0, 64, 1, 5120], (80, 128), False),  # odd offset: scalar blocks
+    (2, 12, 3, 1, 96, 37, 97, [3589, 0, 7178], (111, 97), False),  # odd ld: scalar
+    (4, 17, 4, 2, 512, 9, 1024, [512, 0, 9216, 9728], (18, 1024), True),  # x shared, batch stride 0
+    (1, 32, 32, 96, 40, 5, 40, [200 * i for i in range(32)], (160, 40), False),  # 128 terms
+]
+
+
+def _blocks_operands(case, mode="uniform", p=P):
+    batch, m, k, z, bc, nr, ld, offsets, x_shape, shared = case
+    rng = np.random.default_rng(m * 1000 + bc)
+    draw = lambda shape: torch.as_tensor(_draw(rng, shape, mode, p), dtype=torch.int32)  # noqa: E731
+    x = draw((1,) + x_shape).expand(batch, *x_shape) if shared else draw((batch,) + x_shape)
+    return (draw((batch, m, k)), x, torch.as_tensor(offsets, dtype=torch.int64), bc, ld,
+            draw((m, z)), draw((batch, z, nr * bc)))
+
+
+@pytest.mark.parametrize("case", _BLOCKS_CASES, ids=lambda c: "m{}-z{}-bc{}-ld{}".format(c[1], c[3], c[4], c[6]))
+@pytest.mark.parametrize("variant", ["int32", "f32"])
+def test_blocks_kernel_matches_the_plain_version_on_both_load_paths(cuda, variant, case):
+    mode = "maximal" if case[3] == 96 else "uniform"
+    a, x, offsets, bc, ld, v, r = _blocks_operands(case, mode)
+    want = ref.modmatmul_blocks_plus_plain(a, x, offsets, bc, ld, v, r, P, variant)
+    a_d, x_d, off_d, v_d, r_d = (t.to(cuda) for t in (a, x, offsets, v, r))
+    if case[-1]:
+        x_d = x_d[:1].expand(x.shape)  # a broadcast view on the card too
+    backend = {"int32": "cuda_int32", "f32": "cuda"}[variant]
+    K.reset_launch_counts()
+    got = K.modmatmul_blocks_plus_cuda(a_d, x_d, off_d, bc, ld, v_d, r_d, P, variant)
+    via_ops = ops.mod_matmul_blocks_plus(a_d, x_d, off_d, bc, ld, v_d, r_d, p=P, backend=backend)
+    torch.cuda.synchronize()
+    batch, m, k, z = case[:4]
+    assert dict(K.LAUNCH_SHAPES_BY_KERNEL[f"{variant}_skinny"]) == {(batch, m, k + z, r.shape[-1]): 2}
+    assert {k_: c for k_, c in K.LAUNCHES_BY_KERNEL.items() if c} == {f"{variant}_skinny": 2}
+    assert torch.equal(got.cpu(), want) and torch.equal(via_ops.cpu(), want)
+
+
+# (cell, AGE s/t/z, batch, k, ma, mb): the share shapes of each cell, for
+# dsv3-moe.decode the held experts' gate/up at M = 80 and the dense
+# FFN's gate/up
+_SHARE_CELLS = [
+    ("nemo12b-wq.decode", (2, 2, 2), 8, 5120, 32, 4096),
+    ("dsv2lite-head.decode", (2, 2, 1), 1, 2048, 32, 102400),
+    ("nemo12b-wq.prefill", (2, 2, 2), 4, 5120, 2048, 4096),
+    ("dsv3-moe.decode-experts", (2, 2, 2), 8, 7168, 80, 4096),
+    ("dsv3-moe.decode-dense", (2, 2, 2), 1, 7168, 1024, 36864),
+]
+
+
+@pytest.mark.parametrize("cell", _SHARE_CELLS, ids=lambda c: c[0])
+@pytest.mark.parametrize("variant", ["int32", "f32"])
+def test_share_blocks_equal_the_stack_path_at_each_cells_shapes(cuda, monkeypatch, variant, cell):
+    _, (s, t, z), batch, k, ma, mb = cell
+    plan = planner.get_plan(constructions.build_scheme("age", s, t, z),
+                            planner.BlockShapes(k=k, ma=ma, mb=mb, s=s, t=t))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(batch * 7 + ma)
+    a = torch.randint(0, P, (batch, k, ma), generator=gen, device=cuda, dtype=torch.int32)
+    b = torch.randint(0, P, (batch, k, mb), generator=gen, device=cuda, dtype=torch.int32)
+    backend = {"int32": "cuda_int32", "f32": "cuda"}[variant]
+    key = gf.prng_key(ma + mb)
+    K.reset_launch_counts()
+    fa, fb = protocol.share_batched(plan, a, b, key, backend=backend)
+    torch.cuda.synchronize()
+    (bra, bca), (brb, bcb) = plan.shapes.blk_a, plan.shapes.blk_b
+    terms, n = s * t + z, plan.n_total
+    assert dict(K.LAUNCH_SHAPES_BY_KERNEL[f"{variant}_skinny"]) == {
+        (batch, n, terms, bra * bca): 1, (batch, n, terms, brb * bcb): 1}
+    monkeypatch.setattr(protocol, "skinny_fuses", lambda *args: False)  # the stack path
+    ga, gb = protocol.share_batched(plan, a, b, key, backend=backend)
+    assert torch.equal(fa, ga)
+    del ga
+    assert torch.equal(fb, gb)
+
+
+@pytest.mark.parametrize("s,t,z,spares", [(2, 2, 2, 0), (2, 2, 1, 0), (3, 2, 2, 0), (2, 2, 2, 3)])
+def test_run_batched_with_the_blocks_share_is_exact(cuda, s, t, z, spares):
+    plan = planner.get_plan(constructions.build_scheme("age", s, t, z),
+                            planner.BlockShapes(k=96 * s, ma=24 * t, mb=40 * t, s=s, t=t),
+                            n_spare=spares)
+    rng = np.random.default_rng(s * 100 + t * 10 + z + spares)
+    a = torch.as_tensor(rng.integers(0, P, (3, 96 * s, 24 * t)), device=cuda)
+    b = torch.as_tensor(rng.integers(0, P, (3, 96 * s, 40 * t)), device=cuda)
+    snap = lambda: REGISTRY.snapshot()["counters"].get("protocol.share.fused", 0)  # noqa: E731
+    before = snap()
+    K.reset_launch_counts()
+    y, _ = protocol.run_batched(plan, a, b, seed=13)
+    torch.cuda.synchronize()
+    assert snap() - before == 1 and sum(K.LAUNCHES.values()) == 5
+    want = torch.remainder(torch.einsum("bki,bkj->bij", a.cpu().double(), b.cpu().double()), P)
+    assert torch.equal(y.cpu(), want.to(torch.int64))
+    cpu, _ = protocol.run_batched(plan, a.cpu(), b.cpu(), seed=13, device="cpu")
+    assert torch.equal(y.cpu(), cpu)
+
+
+def test_fuzz_blocks_plus_engines_clean(cuda):
+    K.reset_launch_counts()
+    found = fuzz.run_fuzz(examples=32, seed=4, engines=["cuda_blocks_plus", "cuda_int32_blocks_plus"])
     assert found == [], "\n".join(m.describe() for m in found)
     launched = {k for k, v in K.LAUNCHES_BY_KERNEL.items() if v}
     assert {"int32_skinny", "f32_skinny"} <= launched

@@ -1,7 +1,7 @@
 """The degree reduction as one product, ``a @ h[rows] + v @ r`` (CPU).
 
 ``ops.mod_matmul_rows_plus`` runs the skinny kernel's loaded-rows form
-on the card where ``ops.rows_plus_fuses`` holds, and the selection, two
+on the card where ``ops.skinny_fuses`` holds, and the selection, two
 products and ``mod_add`` elsewhere.  Here: the dispatch rule, the plain
 route against the three-step arithmetic and an integer oracle, the
 ``protocol.reduce.*`` counters of ``run_batched``, and, on a fake card
@@ -31,10 +31,10 @@ CUDA = torch.device("cuda")  # a device value only: nothing is allocated on it
 )
 def test_rows_plus_fuses_on_the_card_inside_the_skinny_rule(m, k, z, fuses):
     for backend in ("auto", "cuda_int32", "cuda"):
-        assert ops.rows_plus_fuses(backend, CUDA, m, k, z) is fuses
-        assert ops.rows_plus_fuses(backend, "cpu", m, k, z) is False
+        assert ops.skinny_fuses(backend, CUDA, m, k, z) is fuses
+        assert ops.skinny_fuses(backend, "cpu", m, k, z) is False
     for backend in ("int32", "f32limb"):
-        assert ops.rows_plus_fuses(backend, CUDA, m, k, z) is False
+        assert ops.skinny_fuses(backend, CUDA, m, k, z) is False
 
 
 def _operands(seed, batch, m, k, z, n, n_rows, permuted, extra_stride=0, mode="uniform", p=P):
@@ -160,14 +160,15 @@ def test_reduce_counts_unfused_once_per_call_on_the_cpu():
 
 
 def _treat_cpu_as_card(monkeypatch):
-    """The dispatch rule as it reads on the card, for CPU tensors."""
-    rule = ops.rows_plus_fuses
+    """The dispatch rule as it reads on the card, for CPU tensors (the
+    share's blocks form takes it too)."""
+    rule = ops.skinny_fuses
 
     def on_card(backend, device, m, k, z):
         return rule(backend, CUDA, m, k, z)
 
-    monkeypatch.setattr(ops, "rows_plus_fuses", on_card)
-    monkeypatch.setattr(protocol, "rows_plus_fuses", on_card)
+    monkeypatch.setattr(ops, "skinny_fuses", on_card)
+    monkeypatch.setattr(protocol, "skinny_fuses", on_card)
 
 
 # 3 spares: a permuted subset of 17 senders among 20 workers
@@ -202,7 +203,7 @@ def test_run_batched_refuses_phase2_ids_outside_the_plan():
 def fake_card(monkeypatch):
     """CPU tensors through the kernel wrappers' launch paths: the device
     check passes, each launch writes its plain version's result and is
-    counted as on the card, and the reduce's rule reads as on the card."""
+    counted as on the card, and the rule reads as on the card."""
     variant_of = lambda design: design.split("_")[0]  # noqa: E731
 
     def launch_into(lib, design, a, b, out, p, v=None, key=(0, 0)):
@@ -215,13 +216,21 @@ def fake_card(monkeypatch):
         out.copy_(ref.modmatmul_rows_plus_plain(a, h, rows, v, r, p, variant_of(design)))
         return 0
 
+    def launch_blocks_plus_into(lib, design, a, x, offsets, bc, ld, v, r, out, p):
+        out.copy_(ref.modmatmul_blocks_plus_plain(a, x, offsets, bc, ld, v, r, p, variant_of(design)))
+        return 0
+
     monkeypatch.setattr(K, "_check_device", lambda name, *tensors: None)
     monkeypatch.setattr(K, "load_library", lambda: None)
     monkeypatch.setattr(K, "launch_into", launch_into)
     monkeypatch.setattr(K, "launch_rows_plus_into", launch_rows_plus_into)
+    monkeypatch.setattr(K, "launch_blocks_plus_into", launch_blocks_plus_into)
     monkeypatch.setattr(ops, "modmatmul_cuda", lambda a, b, p, variant: K._launch(variant, a, b, p))
     monkeypatch.setattr(ops, "modmatmul_rows_plus_cuda",
                         lambda a, h, rows, v, r, p, variant: K._launch_rows_plus(variant, a, h, rows, v, r, p))
+    monkeypatch.setattr(ops, "modmatmul_blocks_plus_cuda",
+                        lambda a, x, offsets, bc, ld, v, r, p, variant:
+                        K._launch_blocks_plus(variant, a, x, offsets, bc, ld, v, r, p))
     _treat_cpu_as_card(monkeypatch)
     K.reset_launch_counts()
     yield
